@@ -18,17 +18,27 @@ first failure (no phase's failure is caught):
    the 16 fusable methods at n=32 a=14 d=2048 c=3 and m=1, 2 at n=256
    a=16 c=16 verified and compared byte for byte with the plain version,
    then its time per rep beside the copy bound 2*E*d / 3.35 TB/s;
+4. kernel K3 (``csrc/dma_steps.cu``) through ``cuda_dma`` (lockstep) and
+   ``cuda_dma_conc`` (concurrent): its co-resident CTA cap, then the 16
+   stepped methods and m=13 ``-b 1`` at the README shape, m=1 and m=18
+   at n=256 a=16 c=16 and m=1 at n=1024 a=64 c=16 (1024 CTAs, 8202
+   steps), each verified and compared byte for byte with the plain
+   version on the whole arena; m=1 at each shape timed beside its steps,
+   waves, table-build seconds and bounds;
 
    each kernel and plain version is timed twice: on the device alone (a
    CUDA graph of many calls, replayed) and as Python launches it, one
    call after another (CUDA events around the calls);
-4. the main path, with every launch count set to 0 first: the CLI ``run``
-   of m=1 on ``torch_sim`` (README config n=32 a=14 d=2048 c=3
-   ``--chained --verify``, then n=1024 a=64 c=16 ``--verify``: 64
-   padded rounds, a 2.15 GB recv arena) and on ``cuda_fused`` (README
-   config ``--chained --verify``), then ``python -m
-   tpu_aggcomm_torch.bench``; it fails unless both kernels launched;
-5. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and as
+5. the main path, one segment per slice, each with its launch counts set
+   to 0 just before it and read just after: the CLI ``run`` of m=1 on
+   ``torch_sim`` (README config n=32 a=14 d=2048 c=3 ``--chained
+   --verify``, then n=1024 a=64 c=16 ``--verify``: 64 padded rounds, a
+   2.15 GB recv arena) and on ``cuda_fused`` (README config ``--chained
+   --verify``), then ``python -m tpu_aggcomm_torch.bench``, failing
+   unless K1 and K2 launched; then m=1 on ``cuda_dma`` and
+   ``cuda_dma_conc`` (README config ``--verify -k 5``) and ``-m 0`` on
+   ``cuda_dma``, failing unless K3 launched;
+6. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -110,20 +120,24 @@ def graph_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / (3 * iters)
 
 
-def timings(kernel, plain, graph_iters: int, plain_graph_iters: int
-            ) -> dict:
+def timings(kernel, plain, graph_iters: int, plain_graph_iters: int,
+            eager_iters: int = 2000, plain_eager_iters: int = 200,
+            warmup: int = 20) -> dict:
     """A kernel's and its plain version's milliseconds per call: ``ms``
     and ``plain_ms`` on the device alone (CUDA graph replay), and
     ``eager_ms`` and ``plain_eager_ms`` as a Python caller launches them
     one by one (CUDA events over back-to-back calls)."""
     return dict(ms=graph_ms(kernel, graph_iters),
-                eager_ms=cuda_ms(kernel, 2000),
+                eager_ms=cuda_ms(kernel, eager_iters, warmup),
                 plain_ms=graph_ms(plain, plain_graph_iters),
-                plain_eager_ms=cuda_ms(plain, 200))
+                plain_eager_ms=cuda_ms(plain, plain_eager_iters,
+                                       min(warmup, plain_eager_iters)))
 
 
 def max_abs_err(a, b) -> int:
     import torch
+    if a.dtype == torch.uint8:      # exact without widening a 2 GB arena
+        return int((torch.maximum(a, b) - torch.minimum(a, b)).max().item())
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
@@ -139,8 +153,8 @@ def phase_setup() -> None:
     print(f"# kernels built in {time.perf_counter() - t0:.1f} s: "
           f"{lib.name}")
     lines = ptxas_report()
-    check(any("exchange_kernel" in ln for ln in lines)
-          and any("fused_rep_kernel" in ln for ln in lines),
+    check(all(any(k in ln for ln in lines) for k in
+              ("exchange_kernel", "fused_rep_kernel", "dma_steps_kernel")),
           f"ptxas report lacks a kernel: {lines}")
     for ln in lines:
         print(f"# {ln}")
@@ -263,10 +277,108 @@ def phase_k2(dev) -> dict:
     return rows[README["n"]]
 
 
+def phase_k3(dev) -> dict:
+    """K3 through cuda_dma and cuda_dma_conc: every stepped method (and
+    m=13 -b 1) at the README shape, m=1 and m=18 at n=256 a=16 c=16 and
+    m=1 at n=1024 a=64 c=16, each verified and compared byte for byte
+    with the plain version on the whole arena; m=1 timed at each shape.
+    Returns the README m=1 rows by discipline."""
+    import torch
+
+    from tpu_aggcomm_torch.backends.cuda_dma import (CudaDmaBackend,
+                                                     capacity,
+                                                     check_protocol,
+                                                     dma_steps,
+                                                     dma_steps_plain,
+                                                     send_arena)
+    from tpu_aggcomm_torch.core.methods import compile_method
+    from tpu_aggcomm_torch.core.pattern import AggregatorPattern
+
+    cap = capacity()
+    print(f"K3: co-resident CTA cap {cap} (blocks per SM x SMs, 128 "
+          f"threads per CTA)", flush=True)
+    n256, n1024 = dict(n=256, a=16, d=2048, c=16), dict(n=1024, a=64,
+                                                        d=2048, c=16)
+    cells = ([(m, README, 0) for m in FUSABLE] + [(13, README, 1)]
+             + [(m, n256, 0) for m in (1, 18)] + [(1, n1024, 0)])
+    # (kernel graph, kernel eager, plain graph, plain eager) calls per
+    # timing, by rank count: the lockstep n=1024 program takes ~15 ms
+    iters = {32: (50, 200, 3, 5), 256: (20, 50, 1, 3), 1024: (2, 5, 1, 2)}
+    rows = {}
+    for conc in (False, True):
+        backend = CudaDmaBackend(device="cuda", concurrent=conc)
+        for m, cfg, bt in cells:
+            n, d = cfg["n"], cfg["d"]
+            s = compile_method(m, AggregatorPattern(
+                n, cfg["a"], data_size=d, comm_size=cfg["c"]),
+                barrier_type=bt)
+            t0 = time.perf_counter()
+            tabs = backend.tables(s)
+            build_s = time.perf_counter() - t0
+            backend.run(s, verify=True)
+            send = send_arena(s.pattern, 0, dev)
+            got, plain = dma_steps(send, tabs), dma_steps_plain(send, tabs)
+            err = max_abs_err(got, plain)
+            check(err == 0 and torch.equal(got, plain),
+                  f"K3 {backend.name} m={m} -b {bt} {cfg}: kernel != plain")
+            del got, plain
+            if m != 1:
+                continue
+            kg, ke, pg, pe = iters[n]
+            row = dict(shape=[n, cfg["a"], d, cfg["c"]],
+                       discipline=backend.name, max_abs_err=err,
+                       steps=tabs.n_steps, waves=tabs.n_waves,
+                       table_build_s=build_s,
+                       **timings(lambda: dma_steps(send, tabs, check=False),
+                                 lambda: dma_steps_plain(send, tabs),
+                                 kg, pg, ke, pe, warmup=min(20, ke)))
+            check_protocol(tabs)
+            recv_bytes = n * tabs.n_recv_rows * d
+            # least bytes of the function: send arena and the three step
+            # tables plus wave ends read once, recv arena written once
+            min_bytes = (send.numel() + 3 * 4 * n * tabs.n_steps
+                         + 4 * tabs.n_waves + recv_bytes)
+            edges = len(s.data_edges())
+            row.update(
+                us_per_wave=row["ms"] * 1e3 / tabs.n_waves,
+                bound_ms=min_bytes / HBM_BYTES_PER_S * 1e3,
+                step_bound_ms=(2 * n * tabs.n_steps * d + recv_bytes)
+                / HBM_BYTES_PER_S * 1e3,
+                payload_bound_ms=2 * edges * d / HBM_BYTES_PER_S * 1e3)
+            print(f"K3 {backend.name} m=1 n={n} a={cfg['a']} c={cfg['c']}: "
+                  f"{tabs.n_steps} steps, {tabs.n_waves} waves, tables "
+                  f"built in {build_s:.3f} s; zeroing + kernel "
+                  f"{row['ms'] * 1e3:.3f} us device (CUDA graph), "
+                  f"{row['eager_ms'] * 1e3:.3f} us eager (events), "
+                  f"{row['us_per_wave']:.3f} us/wave; plain "
+                  f"{row['plain_ms'] * 1e3:.3f} us device, "
+                  f"{row['plain_eager_ms'] * 1e3:.3f} us eager; bound "
+                  f"{row['bound_ms'] * 1e3:.3f} us ({min_bytes} B read "
+                  f"once + written once), step-program bound "
+                  f"{row['step_bound_ms'] * 1e3:.3f} us, payload bound "
+                  f"{row['payload_bound_ms'] * 1e3:.3f} us ({edges} edges)",
+                  flush=True)
+            rows[(n, conc)] = row
+            del send
+        print(f"K3 {backend.name}: {len(cells)} cells verified and == "
+              f"plain", flush=True)
+    return {"lockstep": rows[(32, False)], "concurrent": rows[(32, True)]}
+
+
+def run_cli(runs) -> None:
+    from tpu_aggcomm_torch import cli
+    for argv in runs:
+        print(f"$ python -m tpu_aggcomm_torch.cli {' '.join(argv)}",
+              flush=True)
+        t0 = time.perf_counter()
+        check(cli.main(argv) == 0, f"cli {argv} failed")
+        print(f"# ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 def phase_main_path() -> dict:
     """The port's entry points, launch counts zeroed first; returns the
     counts and the bench's JSON record."""
-    from tpu_aggcomm_torch import cli
+    from tpu_aggcomm_torch.backends.cuda_dma import dma_steps
     from tpu_aggcomm_torch.backends.cuda_local import exchange
     from tpu_aggcomm_torch.native.fuse import fused_rep
 
@@ -284,12 +396,7 @@ def phase_main_path() -> dict:
     ]
     exchange.launches = 0
     fused_rep.launches = 0
-    for argv in runs:
-        print(f"$ python -m tpu_aggcomm_torch.cli {' '.join(argv)}",
-              flush=True)
-        t0 = time.perf_counter()
-        check(cli.main(argv) == 0, f"cli {argv} failed")
-        print(f"# ({time.perf_counter() - t0:.1f} s)", flush=True)
+    run_cli(runs)
     print("$ python -m tpu_aggcomm_torch.bench", flush=True)
     buf, code = io.StringIO(), 0
     with contextlib.redirect_stdout(buf):
@@ -307,6 +414,22 @@ def phase_main_path() -> dict:
     print(f"# main-path launches: {counts}", flush=True)
     check(counts["exchange"] > 0, "K1 was not launched on the main path")
     check(counts["fused_rep"] > 0, "K2 was not launched on the main path")
+
+    # slice 2's path: the remote-DMA transport through the CLI; -m 0
+    # runs in the output directory, since m=13 writes its per-rank CSVs
+    # into the working directory
+    dma = ["-n", "32", *readme, "--verify"]
+    dma_steps.launches = 0
+    run_cli([[*dma, "--backend", "cuda_dma", "-k", "5"],
+             [*dma, "--backend", "cuda_dma_conc", "-k", "5"]])
+    with contextlib.chdir(OUT_DIR):
+        run_cli([["-n", "32", "-m", "0", "-a", "14", "-d", "2048", "-c",
+                  "3", "--backend", "cuda_dma", "--verify",
+                  "--results-csv", csv]])
+    counts["dma_steps"] = dma_steps.launches
+    print(f"# main-path launches (cuda_dma): {counts['dma_steps']}",
+          flush=True)
+    check(counts["dma_steps"] > 0, "K3 was not launched on the main path")
     return {"counts": counts, "bench": record}
 
 
@@ -329,10 +452,14 @@ def main() -> int:
     phase_setup()
     k1 = phase_k1(dev)
     k2 = phase_k2(dev)
+    k3 = phase_k3(dev)
+    k3_row = dict(k3["lockstep"], concurrent={
+        k: v for k, v in k3["concurrent"].items() if k != "shape"})
     main_path = phase_main_path()
     counts = main_path["counts"]
-    # no single PyTorch call computes either function (a permuted copy
-    # plus XOR; a round-fenced scatter of rows), so library_ms is null
+    # no single PyTorch call computes any of these functions (a permuted
+    # copy plus XOR; a round-fenced scatter of rows; a semaphore-
+    # synchronized step program), so library_ms is null
     kernels = [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": counts[name],
@@ -342,7 +469,9 @@ def main() -> int:
             ("exchange", "tpu_aggcomm_torch/csrc/exchange.cu",
              "tpu_aggcomm/backends/pallas_local.py:83", k1),
             ("fused_rep", "tpu_aggcomm_torch/csrc/fused_rep.cu",
-             "tpu_aggcomm/native/fuse.py:390", k2))]
+             "tpu_aggcomm/native/fuse.py:390", k2),
+            ("dma_steps", "tpu_aggcomm_torch/csrc/dma_steps.cu",
+             "tpu_aggcomm/backends/pallas_dma.py:420", k3_row))]
     print(json.dumps({"kernels": kernels}))
     print(f"# chip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     print(smi)

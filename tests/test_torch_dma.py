@@ -1,0 +1,347 @@
+"""The remote-DMA transport of the port (``cuda_dma``, kernel K3) against
+the reference ``pallas_dma`` on the CPU.
+
+- Host parity: ``lower_schedule``, the step tables, ``WAVES`` and
+  ``wave_profile`` equal the reference's array for array, for every
+  non-collective dispatched method in both posting disciplines;
+  ``barrier_shifts`` and ``complete_permutation`` agree on n = 1..40 and
+  seeded random partial permutations.
+- Kernel: ``dma_steps_plain`` (what the wrapper runs for a CPU tensor)
+  equals the Pallas K3 kernel in interpret mode on the 8-device CPU mesh
+  of ``tests/conftest.py``, the whole recv arena, trash row included.
+- Backend, CLI and named refusals.
+
+Tolerance is zero throughout: this is integer data movement.
+"""
+
+import io
+import re
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P  # noqa: E402
+
+from tpu_aggcomm.backends import jax_ici as ref_ici  # noqa: E402
+from tpu_aggcomm.backends import pallas_dma as ref_dma  # noqa: E402
+from tpu_aggcomm.core.methods import compile_method as ref_compile  # noqa: E402
+from tpu_aggcomm.core.pattern import AggregatorPattern as RefPattern  # noqa: E402
+from tpu_aggcomm.harness.runner import ExperimentConfig as RefConfig  # noqa: E402
+from tpu_aggcomm.harness.runner import run_experiment as ref_run  # noqa: E402
+from tpu_aggcomm.harness.verify import make_send_slabs as ref_slabs  # noqa: E402
+
+from tpu_aggcomm_torch import cli  # noqa: E402
+from tpu_aggcomm_torch.backends import cuda_dma, ici_lower  # noqa: E402
+from tpu_aggcomm_torch.backends.registry import get_backend  # noqa: E402
+from tpu_aggcomm_torch.backends.torch_sim import NotPortedError  # noqa: E402
+from tpu_aggcomm_torch.core.methods import compile_method  # noqa: E402
+from tpu_aggcomm_torch.core.pattern import AggregatorPattern  # noqa: E402
+from tpu_aggcomm_torch.device import NoCudaDeviceError  # noqa: E402
+from tpu_aggcomm_torch.harness.runner import (ExperimentConfig,  # noqa: E402
+                                              run_experiment)
+
+# every dispatched method that is neither TAM nor a dense collective
+STEPPED = [1, 2, 3, 4, 6, 7, 9, 10, 11, 12, 13, 14, 17, 18, 19, 20]
+SMALL, README = (8, 3, 256, 2), (32, 14, 2048, 3)
+# (method, shape, barrier_type): every stepped method at both shapes, and
+# m=13 with a barrier per rep at the README shape
+HOST_CASES = ([(m, s, 0) for s in (SMALL, README) for m in STEPPED]
+              + [(13, README, 1)])
+
+
+def _pair(m, shape, barrier_type=0, proc_node=1):
+    n, a, d, c = shape
+    return (ref_compile(m, RefPattern(n, a, data_size=d, comm_size=c,
+                                      proc_node=proc_node),
+                        barrier_type=barrier_type),
+            compile_method(m, AggregatorPattern(n, a, data_size=d,
+                                                comm_size=c,
+                                                proc_node=proc_node),
+                           barrier_type=barrier_type))
+
+
+# ---------------------------------------------------------------------------
+# host parity
+
+
+@pytest.mark.parametrize("concurrent", [False, True],
+                         ids=["lockstep", "concurrent"])
+@pytest.mark.parametrize("method,shape,barrier_type", HOST_CASES)
+def test_host_tables_match_reference(method, shape, barrier_type,
+                                     concurrent):
+    rs, s = _pair(method, shape, barrier_type)
+    got, want = ici_lower.lower_schedule(s), ref_ici.lower_schedule(rs)
+    for field in ("perms", "round_of_color", "barrier_rounds",
+                  "n_send_slots", "n_recv_slots"):
+        assert getattr(got, field) == getattr(want, field), field
+    for field in ("sslot_tab", "rslot_tab"):
+        g, w = getattr(got, field), getattr(want, field)
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+    ref_b = ref_dma.PallasDmaBackend(concurrent=concurrent)
+    _low, _pds, rtabs, rwaves, rn = ref_b._build_steps(rs)
+    _low, tabs, waves, n_recv = cuda_dma.build_steps(s, concurrent)
+    assert waves == rwaves and n_recv == rn
+    for g, w in zip(tabs, rtabs):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    prof = cuda_dma.CudaDmaBackend("cpu", concurrent).wave_profile(s)
+    assert prof == ref_b.wave_profile(rs)
+
+
+@pytest.mark.parametrize("n", range(1, 41))
+def test_barrier_shifts_and_completion_match_reference(n):
+    assert cuda_dma.barrier_shifts(n) == ref_dma.barrier_shifts(n)
+    rng = np.random.default_rng(n)
+    for _ in range(6):
+        k = int(rng.integers(0, n + 1))
+        srcs = rng.permutation(n)[:k]
+        dsts = rng.permutation(n)[:k]
+        pairs = [(int(a), int(b)) for a, b in zip(srcs, dsts)]
+        got = cuda_dma.complete_permutation(pairs, n)
+        want = ref_dma.complete_permutation(pairs, n)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+        assert sorted(got.tolist()) == list(range(n))
+
+
+# ---------------------------------------------------------------------------
+# kernel K3: plain version against the Pallas kernel in interpret mode
+
+
+def _pallas_arena(rs, concurrent, iter_):
+    """The reference kernel's whole recv arena (n, R+1, d), trash row
+    included, run as ``PallasDmaBackend.run`` runs it."""
+    p = rs.pattern
+    n, d = p.nprocs, p.data_size
+    mesh = Mesh(np.array(jax.devices()[:n]), ("ranks",))
+    sharding = NamedSharding(mesh, P("ranks"))
+    fn, pds, n_send, n_recv, tabs, _w = ref_dma.PallasDmaBackend(
+        concurrent=concurrent)._lower(rs, mesh, True)
+    send_g = np.zeros((n, n_send + 1, pds), dtype=np.uint8)
+    for r, slab in enumerate(ref_slabs(p, iter_)):
+        if slab is not None:
+            send_g[r, :slab.shape[0], :d] = slab
+    out = fn(jax.device_put(send_g.reshape(n, n_send + 1, 4, pds // 4),
+                            sharding),
+             *[jax.device_put(t, sharding) for t in tabs])
+    return np.asarray(out).reshape(n, n_recv + 1, pds)[:, :, :d]
+
+
+@pytest.mark.parametrize("method,concurrent,d", [
+    (1, False, 64), (12, False, 64), (17, False, 64), (18, False, 64),
+    (1, True, 64), (18, True, 64), (12, False, 100)])
+def test_plain_dma_steps_match_pallas_interpret(method, concurrent, d):
+    rs, s = _pair(method, (8, 3, d, 2))
+    want = _pallas_arena(rs, concurrent, iter_=1)
+    tabs = cuda_dma.dma_tables(s, concurrent, "cpu")
+    send = cuda_dma.send_arena(s.pattern, 1, "cpu")
+    before = cuda_dma.dma_steps.launches
+    got = cuda_dma.dma_steps(send, tabs).numpy()
+    assert cuda_dma.dma_steps.launches == before   # CPU: no kernel launch
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    assert not got[:, -1].any()                    # trash row stays zero
+
+
+# ---------------------------------------------------------------------------
+# backend
+
+
+# the cases of tests/test_pallas_dma.py: (method, shape, barrier_type,
+# proc_node)
+BACKEND_CASES = (
+    [(m, (8, 3, 64, 3), 0, 1) for m in (6, 7, 11, 12, 18)]
+    + [(m, (8, 3, 32, 2), 0, 1) for m in (1, 3, 20)]
+    + [(17, (8, 3, 32, 4), 0, 1), (13, (8, 3, 32, 4), 1, 1),
+       (12, (8, 3, 100, 3), 0, 1), (17, (8, 3, 32, 3), 0, 2)]
+    + [(m, (8, 3, 52, 2), 0, 2) for m in (1, 6, 7, 11, 12, 17, 18)])
+
+
+@pytest.mark.parametrize("concurrent", [False, True],
+                         ids=["lockstep", "concurrent"])
+@pytest.mark.parametrize("method,shape,barrier_type,proc_node",
+                         BACKEND_CASES)
+def test_backend_verifies_on_cpu(method, shape, barrier_type, proc_node,
+                                 concurrent):
+    _rs, s = _pair(method, shape, barrier_type, proc_node)
+    b = cuda_dma.CudaDmaBackend("cpu", concurrent=concurrent)
+    recv, timers = b.run(s, verify=True, iter_=3, ntimes=2)
+    assert b.last_provenance == (b.name, "attributed")
+    assert len(b.last_rep_timers) == 2
+    assert timers[0].total_time > 0
+    assert any(r is not None for r in recv)
+
+
+def test_backend_m1_matches_pallas_dma():
+    rs, s = _pair(1, (8, 3, 64, 2))
+    want, _ = ref_dma.PallasDmaBackend().run(rs, verify=True)
+    for concurrent in (False, True):
+        got, _ = cuda_dma.CudaDmaBackend("cpu", concurrent).run(s,
+                                                                verify=True)
+        for a, b in zip(got, want):
+            assert (a is None) == (b is None)
+            if a is not None:
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["cuda_dma", "cuda_dma_conc"])
+def test_dense_collectives_route_to_torch_sim(name):
+    _rs, s = _pair(8, (8, 3, 32, 2))
+    b = get_backend(name, device="cpu")
+    assert b.name == name and b.concurrent == (name == "cuda_dma_conc")
+    recv, _ = b.run(s, verify=True)
+    assert b.last_provenance == ("torch_sim", "attributed")
+    assert sum(r is not None for r in recv) == 3      # the aggregators
+
+
+def test_tables_are_built_once_per_schedule():
+    _rs, s = _pair(1, SMALL)
+    b = cuda_dma.CudaDmaBackend("cpu")
+    assert b.tables(s) is b.tables(s)
+    tabs = b.tables(s)
+    assert tabs.n_steps == b.wave_profile(s)["steps"]
+    assert tabs.wave_end.tolist() == [s1 for _s0, s1 in tabs.waves]
+    assert (tabs.n_send_rows, tabs.n_recv_rows) == (4, 9)
+
+
+# ---------------------------------------------------------------------------
+# refusals
+
+
+def test_refuses_without_a_card_unless_cpu_requested(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for concurrent in (False, True):
+        with pytest.raises(NoCudaDeviceError, match="device='cpu'"):
+            cuda_dma.CudaDmaBackend(concurrent=concurrent)
+    cuda_dma.CudaDmaBackend(device="cpu")
+
+
+@pytest.mark.parametrize("name", ["cuda_dma", "cuda_dma_conc"])
+def test_chained_is_refused_before_any_method_runs(name, tmp_path):
+    cfg = ExperimentConfig(nprocs=8, cb_nodes=3, method=0, data_size=32,
+                           comm_size=3, backend=name, device="cpu",
+                           chained=True, results_csv=str(tmp_path / "r.csv"))
+    out = io.StringIO()
+    with pytest.raises(ValueError, match=f"--chained .*{name}"):
+        run_experiment(cfg, out=out)
+    assert out.getvalue() == ""
+    assert not (tmp_path / "r.csv").exists()
+    _rs, s = _pair(1, SMALL)
+    with pytest.raises(ValueError, match="--chained"):
+        cuda_dma.CudaDmaBackend("cpu").run(s, chained=True)
+
+
+def test_capacity_check_names_the_cap():
+    cuda_dma.check_capacity(32, 32)
+    with pytest.raises(cuda_dma.DmaCapacityError, match="at most 31"):
+        cuda_dma.check_capacity(32, 31)
+    with pytest.raises(cuda_dma.DmaCapacityError, match="1024 ranks"):
+        cuda_dma.check_capacity(1024, 2 * 132)
+
+
+def _corrupt(kind, tabs, waves):
+    dst, src, sslot, rslot = (t.copy() for t in tabs)
+    if kind == "dst":
+        dst[0, 5] = dst[1, 5]          # two ranks push to one rank
+    elif kind == "src":
+        src[:, 5] = np.roll(src[:, 5], 1)
+    elif kind == "sslot":
+        sslot[2, 0] = 4
+    elif kind == "rslot":
+        rslot[2, 0] = -1
+    elif kind == "waves":
+        waves = waves[:-1]
+    return (dst, src, sslot, rslot), waves
+
+
+@pytest.mark.parametrize("kind,needle", [
+    ("dst", "not a permutation"), ("src", "inverse"),
+    ("sslot", "send slot"), ("rslot", "recv slot"),
+    ("waves", "waves end")])
+def test_malformed_step_table_is_refused_on_the_host(kind, needle):
+    _rs, s = _pair(1, SMALL)
+    low, tabs, waves, n_recv = cuda_dma.build_steps(s)
+    bad, bad_waves = _corrupt(kind, tabs, waves)
+    with pytest.raises(cuda_dma.DmaTableError, match=needle):
+        cuda_dma.make_tables(bad, bad_waves, low.n_send_slots + 1,
+                             n_recv + 1, "cpu")
+
+
+def test_refuses_tam_and_fault_injected_schedules():
+    b = cuda_dma.CudaDmaBackend("cpu")
+    with pytest.raises(NotPortedError, match="TAM"):
+        b.run(object())
+    _rs, s = _pair(1, SMALL)
+    s.fault = "dead:0-1"
+    with pytest.raises(NotPortedError, match="fault"):
+        b.run(s)
+
+
+def test_dma_steps_wrapper_checks_its_inputs():
+    _rs, s = _pair(1, SMALL)
+    tabs = cuda_dma.dma_tables(s, False, "cpu")
+    with pytest.raises(ValueError, match="send must be"):
+        cuda_dma.dma_steps(torch.zeros((8, 3, 16), dtype=torch.uint8), tabs)
+    with pytest.raises(ValueError, match="send must be"):
+        cuda_dma.dma_steps(torch.zeros((8, 4, 16), dtype=torch.int32), tabs)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_dma.dma_steps(torch.zeros((8, 16, 4), dtype=torch.uint8)
+                           .transpose(1, 2), tabs)
+
+
+# ---------------------------------------------------------------------------
+# CLI
+
+_NUM = re.compile(r"\d+\.\d{6}")
+
+
+def _mask(text: str) -> str:
+    return _NUM.sub("<t>", text)
+
+
+def test_console_block_and_csv_match_reference_pallas_dma(tmp_path, capsys):
+    ref_csv, got_csv = tmp_path / "ref.csv", tmp_path / "got.csv"
+    ref_out = io.StringIO()
+    ref_run(RefConfig(nprocs=8, cb_nodes=3, method=1, data_size=256,
+                      comm_size=2, backend="pallas_dma", verify=True,
+                      results_csv=str(ref_csv)), out=ref_out)
+    assert cli.main(["-n", "8", "-m", "1", "-a", "3", "-d", "256", "-c", "2",
+                     "--backend", "cuda_dma", "--device", "cpu",
+                     "--verify", "--results-csv", str(got_csv)]) == 0
+    got_out = capsys.readouterr().out
+    assert "| All to many max total time = " in got_out
+    assert _mask(got_out) == _mask(ref_out.getvalue())
+    assert _mask(got_csv.read_text()) == _mask(ref_csv.read_text())
+    prov = (tmp_path / "got.provenance.csv").read_text().splitlines()
+    assert prov[-1].endswith(",cuda_dma,cuda_dma,attributed")
+
+
+def test_cli_run_all_on_cpu_routes_collectives(tmp_path, capsys,
+                                               monkeypatch):
+    """-m 0 covers all 18 non-TAM methods: the 16 stepped ones on the
+    transport, m=5/8 routed to torch_sim (recorded in the provenance)."""
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(["-n", "8", "-m", "0", "-a", "3", "-d", "32", "-c", "3",
+                     "--backend", "cuda_dma_conc", "--device", "cpu",
+                     "--verify", "--results-csv",
+                     str(tmp_path / "r.csv")]) == 0
+    assert capsys.readouterr().out.count("max total time") == 18
+    prov = (tmp_path / "r.provenance.csv").read_text().splitlines()[1:]
+    executed = [ln.split(",")[-2] for ln in prov]
+    assert executed.count("torch_sim") == 2
+    assert executed.count("cuda_dma_conc") == 16
+
+
+def test_cli_refuses_without_a_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for backend in ("cuda_dma", "cuda_dma_conc"):
+        with pytest.raises(SystemExit) as e:
+            cli.main(["-m", "1", "-a", "14", "-d", "2048", "-c", "3",
+                      "--backend", backend, "--results-csv",
+                      str(tmp_path / "r.csv")])
+        assert str(e.value.code).startswith("NoCudaDeviceError: ")

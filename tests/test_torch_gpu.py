@@ -15,6 +15,9 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_aggcomm_torch.backends.cuda_dma import (CudaDmaBackend, capacity,
+                                                 dma_steps, dma_steps_plain,
+                                                 dma_tables, send_arena)
 from tpu_aggcomm_torch.backends.cuda_fused import CudaFusedBackend
 from tpu_aggcomm_torch.backends.cuda_local import (exchange, exchange_chain,
                                                    exchange_plain,
@@ -78,3 +81,40 @@ def test_backends_verify_on_the_card(cuda, backend):
     recv, timers = backend(device="cuda").run(s, verify=True)
     assert sum(r is not None for r in recv) == 14
     assert timers[0].total_time > 0
+
+
+@pytest.mark.parametrize("d", [2048, 36, 30])
+@pytest.mark.parametrize("concurrent", [False, True],
+                         ids=["lockstep", "concurrent"])
+@pytest.mark.parametrize("method", FUSABLE)
+def test_dma_kernel_matches_plain(cuda, method, concurrent, d):
+    """K3 on the whole recv arena, trash row included: 16-byte vectors
+    (d=2048), 4-byte words (d=36) and bytes (d=30)."""
+    s = compile_method(method, AggregatorPattern(32, 14, data_size=d,
+                                                 comm_size=3))
+    tabs = dma_tables(s, concurrent, cuda)
+    send = send_arena(s.pattern, 1, cuda)
+    before = dma_steps.launches
+    got = dma_steps(send, tabs)
+    torch.cuda.synchronize()
+    assert dma_steps.launches == before + 1
+    assert torch.equal(got, dma_steps_plain(send, tabs))
+    assert not got[:, -1].any()
+
+
+@pytest.mark.parametrize("concurrent", [False, True],
+                         ids=["lockstep", "concurrent"])
+def test_dma_backends_verify_on_the_card(cuda, concurrent):
+    s = compile_method(1, AggregatorPattern(32, 14, data_size=2048,
+                                            comm_size=3))
+    before = dma_steps.launches
+    recv, timers = CudaDmaBackend(device="cuda",
+                                  concurrent=concurrent).run(s, verify=True,
+                                                             ntimes=3)
+    assert dma_steps.launches == before + 4       # warm-up + 3 reps
+    assert sum(r is not None for r in recv) == 14
+    assert timers[0].total_time > 0
+
+
+def test_dma_capacity_holds_1024_ranks(cuda):
+    assert capacity() >= 1024

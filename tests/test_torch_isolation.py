@@ -62,6 +62,7 @@ def test_every_module_imports_and_runs_m1_on_cpu(poisoned):
     env, cwd = poisoned
     mods = _port_modules()
     assert "tpu_aggcomm_torch.backends.cuda_fused" in mods
+    assert "tpu_aggcomm_torch.backends.cuda_dma" in mods
     code = f"""
 import importlib, sys
 for m in {mods!r}:
@@ -76,16 +77,19 @@ assert not bad, bad
 from tpu_aggcomm_torch.backends.torch_sim import TorchSimBackend
 from tpu_aggcomm_torch.backends.cuda_fused import (CudaFusedBackend,
                                                    FusedBackendError)
+from tpu_aggcomm_torch.backends.cuda_dma import CudaDmaBackend
 from tpu_aggcomm_torch.core.methods import compile_method
 from tpu_aggcomm_torch.core.pattern import AggregatorPattern
 from tpu_aggcomm_torch.device import NoCudaDeviceError
 
 s = compile_method(1, AggregatorPattern(8, 3, data_size=256, comm_size=2))
-for backend in (TorchSimBackend("cpu"), CudaFusedBackend("cpu")):
+for backend in (TorchSimBackend("cpu"), CudaFusedBackend("cpu"),
+                CudaDmaBackend("cpu"), CudaDmaBackend("cpu", True)):
     recv, timers = backend.run(s, verify=True)
     assert sum(r is not None for r in recv) == 3
 for ctor, err in ((TorchSimBackend, NoCudaDeviceError),
-                  (CudaFusedBackend, FusedBackendError)):
+                  (CudaFusedBackend, FusedBackendError),
+                  (CudaDmaBackend, NoCudaDeviceError)):
     try:
         ctor()
     except err as e:

@@ -7,8 +7,9 @@ reporting, the fused-plan builder) are copies, and the device layers are
 rewritten in torch with hand-written CUDA kernels for Hopper.
 
 - :mod:`tpu_aggcomm_torch.core`      pattern / schedule / method registry
-- :mod:`tpu_aggcomm_torch.backends`  ``torch_sim`` (rank-axis rounds) and
+- :mod:`tpu_aggcomm_torch.backends`  ``torch_sim`` (rank-axis rounds),
                                      ``cuda_fused`` (one kernel per rep)
+                                     and ``cuda_dma`` (one CTA per rank)
 - :mod:`tpu_aggcomm_torch.harness`   timing, verification, reporting, runner
 - :mod:`tpu_aggcomm_torch.csrc`      CUDA sources and their build loader
 - :mod:`tpu_aggcomm_torch.cli`       the ``./test``-compatible ``run``

@@ -4,6 +4,9 @@
   one gather and one scatter launch per throttle round.
 - ``cuda_fused`` — the same schedule as one cooperative CUDA kernel
   (``csrc/fused_rep.cu``), a grid barrier per round.
+- ``cuda_dma`` / ``cuda_dma_conc`` — the remote-DMA semaphore transport
+  (``csrc/dma_steps.cu``): one co-resident CTA per rank runs the
+  permutation-step program, lockstep or a whole round in flight.
 
 ``cuda_local`` holds the headline exchange kernel (``csrc/exchange.cu``)
 that the bench drives.

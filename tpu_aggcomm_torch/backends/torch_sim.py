@@ -54,7 +54,8 @@ from tpu_aggcomm_torch.harness.verify import (make_send_slabs,
                                               recv_slot_counts, slot_shapes,
                                               verify_recv)
 
-__all__ = ["TorchSimBackend", "NotPortedError", "dense_send_lanes"]
+__all__ = ["TorchSimBackend", "NotPortedError", "dense_send_bytes",
+           "dense_send_lanes"]
 
 
 class NotPortedError(NotImplementedError):
@@ -62,16 +63,21 @@ class NotPortedError(NotImplementedError):
     (queue A) lists it in the order it will be ported."""
 
 
+def dense_send_bytes(p: AggregatorPattern, iter_: int) -> np.ndarray:
+    """Dense (nprocs, n_send_slots, data_size) uint8 send payload: every
+    rank's deterministic-fill slabs, zero rows for ranks that send none."""
+    n_send_slots, _ = slot_shapes(p)
+    out = np.zeros((p.nprocs, n_send_slots, p.data_size), dtype=np.uint8)
+    for r, s in enumerate(make_send_slabs(p, iter_)):
+        if s is not None:
+            out[r, :s.shape[0]] = s
+    return out
+
+
 def dense_send_lanes(p: AggregatorPattern, iter_: int) -> np.ndarray:
     """Dense (nprocs, n_send_slots, w) send payload in the lane layout —
     the global-slab-index addressing the rank-axis reps use."""
-    n_send_slots, _ = slot_shapes(p)
-    slabs = make_send_slabs(p, iter_)
-    out = np.zeros((p.nprocs, n_send_slots, p.data_size), dtype=np.uint8)
-    for r, s in enumerate(slabs):
-        if s is not None:
-            out[r, :s.shape[0]] = s
-    return to_lanes(out, p.data_size)
+    return to_lanes(dense_send_bytes(p, iter_), p.data_size)
 
 
 def _round_tables(schedule: Schedule):

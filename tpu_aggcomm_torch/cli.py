@@ -11,6 +11,7 @@ Examples::
     python -m tpu_aggcomm_torch.cli -m 1 -a 14 -d 2048 -c 3 --backend torch_sim --verify
     python -m tpu_aggcomm_torch.cli -n 8 -m 1 -a 3 -d 256 -c 2 --device cpu --verify
     python -m tpu_aggcomm_torch.cli -m 0 -a 14 -d 2048 -c 3 --backend cuda_fused --chained
+    python -m tpu_aggcomm_torch.cli -m 1 -a 14 -d 2048 -c 3 --backend cuda_dma_conc --verify
 """
 
 from __future__ import annotations
@@ -76,6 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
+    from tpu_aggcomm_torch.backends.cuda_dma import (DmaCapacityError,
+                                                     DmaProtocolError)
     from tpu_aggcomm_torch.backends.cuda_fused import FusedBackendError
     from tpu_aggcomm_torch.backends.torch_sim import NotPortedError
     from tpu_aggcomm_torch.device import NoCudaDeviceError
@@ -93,7 +96,8 @@ def main(argv=None) -> int:
         fault=args.fault)
     try:
         run_experiment(cfg)
-    except (NoCudaDeviceError, FusedBackendError, NotPortedError) as e:
+    except (NoCudaDeviceError, FusedBackendError, NotPortedError,
+            DmaCapacityError, DmaProtocolError) as e:
         # an environment or scope refusal: one line naming it, no traceback
         raise SystemExit(f"{type(e).__name__}: {e}")
     return 0

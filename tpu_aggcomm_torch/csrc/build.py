@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC.parents[1] / "build" / "torch_kernels"
 
 #: the kernel sources in this directory, one object each
-SOURCES = ("exchange.cu", "fused_rep.cu")
+SOURCES = ("exchange.cu", "fused_rep.cu", "dma_steps.cu")
 
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-lineinfo", "-Xcompiler",

@@ -72,6 +72,13 @@ def run_experiment(cfg: ExperimentConfig, *, out=None) -> list[dict]:
                          "(the reference's -d 0 default sends empty messages; "
                          "pass an explicit size)")
     _refuse_unported(cfg)
+    if cfg.chained and cfg.backend in ("cuda_dma", "cuda_dma_conc"):
+        # fail BEFORE any method runs, as the reference refuses --chained
+        # on pallas_dma: the step program is timed whole per rep
+        raise ValueError(
+            f"--chained is not supported on --backend {cfg.backend} (the "
+            f"remote-DMA step program is timed whole per rep); use "
+            f"--backend torch_sim or cuda_fused for serial-chained timing")
     methods = method_ids() if cfg.method == 0 else [cfg.method]
     for m in methods:
         if m not in METHODS:
