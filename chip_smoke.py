@@ -11,13 +11,23 @@ first failure (no phase's failure is caught):
 
 1. setup: the card's name and power limit (``nvidia-smi``), the kernel
    build, and ``ptxas``'s registers and shared memory per kernel;
-2. kernel K1 (``csrc/exchange.cu``) at 32x14x2048 and 1024x64x2048: a
-   9-rep chain against its plain version and ``host_replay``, byte for
-   byte, then its time per rep beside the bound 2*n*cb*d / 3.35 TB/s;
-3. kernel K2 (``csrc/fused_rep.cu``) through the ``cuda_fused`` backend:
-   the 16 fusable methods at n=32 a=14 d=2048 c=3 and m=1, 2 at n=256
-   a=16 c=16 verified and compared byte for byte with the plain version,
-   then its time per rep beside the copy bound 2*E*d / 3.35 TB/s;
+2. kernel K1 (``csrc/exchange.cu``, one launch per chain) at 32x14x2048
+   and 1024x64x2048: 9- and 260-rep chains against the plain chain and
+   ``host_replay``, byte for byte, each one launch; its device time per
+   rep (CUDA events around two chain lengths, differenced) and grid, the
+   cost of one barrier from the kernel's %globaltimer stamps, one rep's
+   graph and eager times, the plain version's, and both bounds: 2*n*cb*d
+   / 3.35 TB/s (HBM) and the same bytes at the card's L2 copy rate
+   (plain ``copy_`` of L2-resident buffers, two sizes differenced);
+3. kernel K2 (``csrc/fused_rep.cu``, one launch per rep) through the
+   ``cuda_fused`` backend: the 16 fusable methods at n=32 a=14 d=2048 c=3
+   and m=1, 2 at n=256 a=16 c=16 verified, then one launch into a recv
+   pre-filled with 0xA5 compared byte for byte with the plain version
+   (and a plan that writes one cell in two rounds); at m=1 its device and
+   eager times, its fence (the cluster barrier at the README shape, the
+   hand-rolled one at n=256) and the split of a rep from the kernel's
+   %globaltimer stamps (launch, copies, fences), the zeroing alone,
+   beside the bound;
 4. kernel K3 (``csrc/dma_steps.cu``) through ``cuda_dma`` (lockstep) and
    ``cuda_dma_conc`` (concurrent): its co-resident CTA cap, then the 16
    stepped methods and m=13 ``-b 1`` at the README shape, m=1 and m=18
@@ -154,19 +164,79 @@ def phase_setup() -> None:
           f"{lib.name}")
     lines = ptxas_report()
     check(all(any(k in ln for ln in lines) for k in
-              ("exchange_kernel", "fused_rep_kernel", "dma_steps_kernel")),
+              ("exchange_chain_kernel", "fused_rep_kernel",
+               "dma_steps_kernel")),
           f"ptxas report lacks a kernel: {lines}")
     for ln in lines:
         print(f"# {ln}")
 
 
+def chain_us(p, send0, small: int, big: int) -> float:
+    """Device microseconds per rep of a K1 chain: CUDA events around one
+    chain launch of ``small`` and of ``big`` reps (best of three each),
+    differenced, so the launch and the fixed cost cancel."""
+    import torch
+
+    from tpu_aggcomm_torch.backends.cuda_local import (check_barrier,
+                                                       exchange_chain)
+
+    def best(iters: int) -> float:
+        times = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            exchange_chain(p, send0, iters, check=False)
+            stop.record()
+            stop.synchronize()
+            times.append(start.elapsed_time(stop))
+        return min(times)
+
+    best(small)                                   # warm-up
+    per = (best(big) - best(small)) / (big - small) * 1e3
+    check_barrier(send0.device)
+    return per
+
+
+def l2_copy_rate() -> float:
+    """The card's L2 copy rate in bytes moved (read + write) per second:
+    plain ``copy_`` between two L2-resident buffers, graph-timed at 8 and
+    16 MiB and differenced, so the fixed cost of a copy cancels. Independent
+    of K1."""
+    import torch
+    times = {}
+    for mib in (8, 16):
+        src = torch.ones(mib * 2**18, dtype=torch.int32, device="cuda")
+        dst = torch.empty_like(src)
+        times[mib] = graph_ms(lambda: dst.copy_(src), 200)
+    return 2 * 8 * 2**20 / ((times[16] - times[8]) * 1e-3)
+
+
+def barrier_us(p, send0, iters: int = 201) -> float:
+    """Microseconds one K1 barrier costs at ``p``'s grid: from the last
+    CTA's arrival to the last CTA's departure (the kernel's %globaltimer
+    stamps of one diagnostic chain), mean over the barriers after the
+    first 20."""
+    import torch
+
+    from tpu_aggcomm_torch.backends.cuda_local import (chain_grid,
+                                                       exchange_chain)
+    stamps = torch.zeros((chain_grid(p, send0.device), iters - 1, 2),
+                         dtype=torch.int64, device=send0.device)
+    exchange_chain(p, send0, iters, stamps=stamps)
+    st = stamps[:, 20:].double()
+    return float((st[:, :, 1].max(0).values
+                  - st[:, :, 0].max(0).values).mean()) / 1e3
+
+
 def phase_k1(dev) -> dict:
-    """K1 against its plain version and the host replay at the bench
-    shape and at a shape far beyond L2; returns the bench shape's row."""
+    """K1 (one launch per chain) against its plain version and the host
+    replay at the bench shape and at a shape far beyond L2; returns the
+    bench shape's row."""
     import numpy as np
     import torch
 
-    from tpu_aggcomm_torch.backends.cuda_local import (exchange,
+    from tpu_aggcomm_torch.backends.cuda_local import (chain_grid, exchange,
                                                        exchange_chain,
                                                        exchange_plain,
                                                        host_replay,
@@ -175,27 +245,37 @@ def phase_k1(dev) -> dict:
     from tpu_aggcomm_torch.backends.lanes import from_reference, to_reference
     from tpu_aggcomm_torch.core.pattern import AggregatorPattern
 
+    l2_rate = l2_copy_rate()
+    print(f"L2 copy rate: {l2_rate / 1e12:.3f} TB/s (plain copy_ of "
+          f"L2-resident 8 and 16 MiB buffers, differenced)", flush=True)
     rows = []
     for n, cb, d in ((32, 14, 2048), (1024, 64, 2048)):
         p = AggregatorPattern(n, cb, data_size=d, comm_size=3)
-        s0 = np.random.default_rng(n).integers(
-            0, 2**32, size=(n, cb, d // 4), dtype=np.uint32)
+        s0 = np.random.default_rng(n).integers(0, 2**32, size=(n, cb, d // 4),
+                                               dtype=np.uint32)
         send0 = from_reference(s0, dev)
-        before = exchange.launches
-        got = exchange_chain(p, send0, 9)
-        torch.cuda.synchronize()
-        check(exchange.launches == before + 9,
-              f"K1 {n}x{cb}x{d}: launch count did not grow by 9")
-        plain = exchange_chain(p, send0, 9, step=exchange_plain)
-        err = max_abs_err(got, plain)
-        got_np = to_reference(got)
-        check(err == 0 and np.array_equal(got_np, to_reference(plain)),
-              f"K1 {n}x{cb}x{d}: kernel chain != plain chain")
-        check(np.array_equal(got_np, host_replay(p, s0, 9)),
-              f"K1 {n}x{cb}x{d}: kernel chain != host_replay")
+        for iters in (9, 260):
+            before = exchange.launches
+            got = exchange_chain(p, send0, iters)
+            torch.cuda.synchronize()
+            check(exchange.launches == before + 1,
+                  f"K1 {n}x{cb}x{d}: a {iters}-rep chain was not one launch")
+            plain = exchange_chain(p, send0, iters, step=exchange_plain)
+            err = max_abs_err(got, plain)
+            got_np = to_reference(got)
+            check(err == 0 and np.array_equal(got_np, to_reference(plain)),
+                  f"K1 {n}x{cb}x{d}: {iters}-rep kernel chain != plain")
+            check(np.array_equal(got_np, host_replay(p, s0, iters)),
+                  f"K1 {n}x{cb}x{d}: {iters}-rep kernel chain != replay")
+            check(np.array_equal(to_reference(send0), s0),
+                  f"K1 {n}x{cb}x{d}: the chain wrote send0")
+            del got, plain
+        big = n * cb * d > 2**26
+        small_it, big_it = (10, 110) if big else (200, 4200)
+        us_per_rep = chain_us(p, send0, small_it, big_it)
+        us_barrier = barrier_us(p, send0)
         order, out = order_table(p, dev), torch.empty_like(send0)
         word = rep_word(1)
-        big = n * cb * d > 2**26
 
         def run_kernel():
             exchange(send0, order, word, out=out)
@@ -203,26 +283,78 @@ def phase_k1(dev) -> dict:
         def run_plain():
             exchange_plain(send0, order, word)
 
-        row = dict(shape=[n, cb, d], max_abs_err=err,
-                   **timings(run_kernel, run_plain, 200 if big else 1000,
-                             50 if big else 200))
+        one = timings(run_kernel, run_plain, 200 if big else 1000,
+                      50 if big else 200)
         nbytes = 2 * n * cb * d
-        row["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
-        print(f"K1 {n}x{cb}x{d}: 9-rep chain == plain == host_replay; "
-              f"{row['ms'] * 1e3:.3f} us device (CUDA graph), "
-              f"{row['eager_ms'] * 1e3:.3f} us/launch eager (events, 2000 "
-              f"launches); plain {row['plain_ms'] * 1e3:.3f} us device, "
-              f"{row['plain_eager_ms'] * 1e3:.3f} us eager; bound "
-              f"{row['bound_ms'] * 1e3:.3f} us ({nbytes} B / 3.35 TB/s)",
-              flush=True)
+        row = dict(shape=[n, cb, d], max_abs_err=err,
+                   ms=us_per_rep / 1e3, us_per_rep=us_per_rep,
+                   one_rep_ms=one["ms"], eager_ms=one["eager_ms"],
+                   plain_ms=one["plain_ms"],
+                   plain_eager_ms=one["plain_eager_ms"],
+                   grid=chain_grid(p, dev),
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   l2_bound_ms=nbytes / l2_rate * 1e3,
+                   us_per_fence=us_barrier)
+        print(f"K1 {n}x{cb}x{d}: 9- and 260-rep chains == plain == "
+              f"host_replay, one launch each; {us_per_rep:.3f} us/rep in a "
+              f"chain (events, {small_it} vs {big_it} reps differenced) on "
+              f"{row['grid']} CTAs, {us_barrier:.3f} us of it a barrier "
+              f"(stamps); one rep {one['ms'] * 1e3:.3f} us device "
+              f"(CUDA graph), {one['eager_ms'] * 1e3:.3f} us eager; plain "
+              f"{one['plain_ms'] * 1e3:.3f} us device, "
+              f"{one['plain_eager_ms'] * 1e3:.3f} us eager; HBM bound "
+              f"{row['bound_ms'] * 1e3:.3f} us ({nbytes} B / 3.35 TB/s), L2 "
+              f"figure {row['l2_bound_ms'] * 1e3:.3f} us ({nbytes} B at "
+              f"{l2_rate / 1e12:.3f} TB/s)", flush=True)
         rows.append(row)
-        del send0, got, plain, out
-    return rows[0]
+        del send0, out
+    return dict(rows[0], large={k: rows[1][k] for k in (
+        "shape", "ms", "one_rep_ms", "eager_ms", "plain_ms", "grid",
+        "bound_ms", "us_per_fence")})
+
+
+def stamp_split(send, tabs, device_ms: float, runs: int = 20) -> dict:
+    """How one K2 rep splits, from the kernel's %globaltimer stamps (mean
+    over ``runs`` launches): the launch (graph-timed device time less the
+    stamped span), each round's copies and each fence, in microseconds."""
+    import torch
+
+    from tpu_aggcomm_torch.native.fuse import fused_plan, fused_rep
+    plan = fused_plan(send, tabs)
+    grid, ncopy = plan["grid"], plan["copy_ctas"]
+    P = max(tabs.n_rounds, 1)
+    stamps = torch.zeros((grid, 2 + 2 * P), dtype=torch.int64,
+                         device=send.device)
+    acc = None
+    for _ in range(runs + 1):
+        fused_rep(send, tabs, stamps=stamps)
+        torch.cuda.synchronize()
+        st = stamps.double()
+        t0 = st[:, 0].min()
+        cp = st[:ncopy]                       # the copying CTAs
+        copy_end = cp[:, 1:1 + 2 * P:2].max(0).values
+        fence_end = cp[:, 2:2 + 2 * P:2].max(0).values
+        starts = torch.cat([t0.reshape(1), fence_end[:-1]])
+        zero_end = st[ncopy:, -1].max() if grid > ncopy else t0
+        one = torch.stack([
+            (copy_end - starts).sum(), (fence_end - copy_end).sum(),
+            st[:, -1].max() - t0, st[:, 0].max() - t0, zero_end - t0])
+        acc = one * 0 if acc is None else acc + one   # first run: warm-up
+    copy_us, fence_us, span_us, spread_us, zero_us = \
+        (acc / runs / 1e3).tolist()
+    return dict(copy_us=copy_us, fence_us=fence_us,
+                us_per_round_copy=copy_us / P,
+                us_per_fence=fence_us / max(P - 1, 1), zero_us=zero_us,
+                span_us=span_us, cta_start_spread_us=spread_us,
+                launch_us=device_ms * 1e3 - span_us)
 
 
 def phase_k2(dev) -> dict:
-    """K2 through cuda_fused for every fusable method; returns the README
-    m=1 row."""
+    """K2 through cuda_fused for every fusable method, then into a
+    poisoned recv against the plain version; the split of a rep and its
+    fence at the README shape and at n=256; returns the README m=1 row
+    with the n=256 one under ``large`` (the cluster and the hand-rolled
+    fence)."""
     import torch
 
     from tpu_aggcomm_torch.backends.cuda_fused import CudaFusedBackend
@@ -230,8 +362,14 @@ def phase_k2(dev) -> dict:
     from tpu_aggcomm_torch.backends.torch_sim import dense_send_lanes
     from tpu_aggcomm_torch.core.methods import compile_method
     from tpu_aggcomm_torch.core.pattern import AggregatorPattern
-    from tpu_aggcomm_torch.native.fuse import (fuse_plan, fused_rep,
-                                               fused_rep_plain, plan_tables)
+    from tpu_aggcomm_torch.native.fuse import (FusePlan, check_fence,
+                                               fuse_plan, fused_plan,
+                                               fused_rep, fused_rep_plain,
+                                               plan_tables)
+
+    def poisoned(tabs, send):
+        return torch.full((tabs.nprocs, tabs.n_recv_rows, send.shape[2]),
+                          -0x5A5A5A5B, dtype=send.dtype, device=send.device)
 
     backend = CudaFusedBackend(device="cuda")
     cells = [(m, README) for m in FUSABLE] + \
@@ -244,7 +382,12 @@ def phase_k2(dev) -> dict:
         plan = fuse_plan(s)
         tabs = plan_tables(plan, dev)
         send = from_reference(dense_send_lanes(s.pattern, 0), dev)
-        got, plain = fused_rep(send, tabs), fused_rep_plain(send, tabs)
+        plain = fused_rep_plain(send, tabs)
+        before = fused_rep.launches
+        got = fused_rep(send, tabs, out=poisoned(tabs, send))
+        check(fused_rep.launches == before + 1,
+              f"K2 m={m} {cfg}: not one launch")
+        check_fence(tabs)
         err = max_abs_err(got, plain)
         check(err == 0 and torch.equal(got, plain),
               f"K2 m={m} {cfg}: kernel != plain")
@@ -253,28 +396,62 @@ def phase_k2(dev) -> dict:
         n, d = cfg["n"], cfg["d"]
         edges, rounds = plan.n_edges, len(plan.rounds)
         zero_bytes = n * tabs.n_recv_rows * d
+        written = n * tabs.n_recv_rows - tabs.zero_rows
         big = zero_bytes > 2**26
+        out = torch.empty_like(plain)
+        zero_ms = graph_ms(lambda: out.zero_(), 100 if big else 1000)
+        t = timings(lambda: fused_rep(send, tabs),
+                    lambda: fused_rep_plain(send, tabs),
+                    100 if big else 1000, 20 if big else 100)
+        launch = fused_plan(send, tabs)
+        split = stamp_split(send, tabs, t["ms"])
         row = dict(shape=[n, cfg["a"], d, cfg["c"]], max_abs_err=err,
-                   zero_bytes=zero_bytes,
-                   **timings(lambda: fused_rep(send, tabs),
-                             lambda: fused_rep_plain(send, tabs),
-                             100 if big else 1000, 20 if big else 100))
+                   ms=t["ms"], eager_ms=t["eager_ms"],
+                   plain_ms=t["plain_ms"], plain_eager_ms=t["plain_eager_ms"],
+                   zero_bytes=zero_bytes, zeroing_alone_ms=zero_ms,
+                   us_per_fence=split["us_per_fence"], **launch, split=split)
         row["chained_ms"] = backend.measure_per_rep(s) * 1e3
         row["copy_bound_ms"] = 2 * edges * d / HBM_BYTES_PER_S * 1e3
-        row["bound_ms"] = (edges * d + zero_bytes) / HBM_BYTES_PER_S * 1e3
+        # least bytes: each edge row read once and written once, every
+        # never-written row written once (zero)
+        row["bound_ms"] = (2 * edges * d + tabs.zero_rows * d) \
+            / HBM_BYTES_PER_S * 1e3
         print(f"K2 m=1 n={n} a={cfg['a']} c={cfg['c']}: {rounds} rounds, "
-              f"{edges} edges; zeroing + kernel {row['ms'] * 1e3:.3f} us "
-              f"device (CUDA graph), {row['eager_ms'] * 1e3:.3f} us eager "
-              f"(events), {row['chained_ms'] * 1e3:.3f} us/rep chained; "
-              f"plain {row['plain_ms'] * 1e3:.3f} us device, "
-              f"{row['plain_eager_ms'] * 1e3:.3f} us eager; copy bound "
-              f"{row['copy_bound_ms'] * 1e3:.3f} us (2*E*d / 3.35 TB/s), "
-              f"recv zeroing {zero_bytes} B, bound with zeroing "
-              f"{row['bound_ms'] * 1e3:.3f} us", flush=True)
+              f"{edges} edges ({written} distinct rows written, "
+              f"{tabs.zero_rows} zeroed in {len(tabs.zero_runs)} runs); "
+              f"{launch['fence']} fence, {launch['grid']} CTAs "
+              f"({launch['copy_ctas']} copying): {row['ms'] * 1e3:.3f} us "
+              f"device (CUDA graph), {row['eager_ms'] * 1e3:.3f} us eager, "
+              f"{row['chained_ms'] * 1e3:.3f} us/rep chained; split: launch "
+              f"{split['launch_us']:.3f} us, zeroing CTAs done at "
+              f"{split['zero_us']:.3f} us, copies {split['copy_us']:.3f} us "
+              f"({split['us_per_round_copy']:.3f} per round), fences "
+              f"{split['fence_us']:.3f} us ({split['us_per_fence']:.3f} "
+              f"per fence); zeroing the whole arena alone "
+              f"{zero_ms * 1e3:.3f} us (graph of the memset); plain "
+              f"{row['plain_ms'] * 1e3:.3f} us device, "
+              f"{row['plain_eager_ms'] * 1e3:.3f} us eager; bound "
+              f"{row['bound_ms'] * 1e3:.3f} us (copies "
+              f"{row['copy_bound_ms'] * 1e3:.3f})", flush=True)
         rows[n] = row
-    print(f"K2: {len(FUSABLE)} fusable methods at n=32 a=14 d=2048 c=3 and "
-          f"m=1, 2 at n=256 a=16 c=16 verified and == plain", flush=True)
-    return rows[README["n"]]
+    # one recv cell written in rounds 0 and 2: the later row lands
+    plan = FusePlan(nprocs=2, data_size=2048, n_send_slots=2, n_recv_slots=2,
+                    rounds=((0, ((0, 0, 1, 0),)), (1, ((1, 0, 0, 1),)),
+                            (2, ((0, 1, 1, 0), (1, 1, 0, 0)))), barriers=())
+    tabs = plan_tables(plan, dev)
+    send = torch.randint(-2**31, 2**31 - 1, (2, 2, 512), dtype=torch.int32,
+                         device=dev)
+    got = fused_rep(send, tabs, out=poisoned(tabs, send))
+    check_fence(tabs)
+    check(torch.equal(got, fused_rep_plain(send, tabs))
+          and torch.equal(got[1, 0], send[0, 1]),
+          "K2 two-writer plan: the later round's row is lost")
+    print(f"K2: {len(FUSABLE)} fusable methods at n=32 a=14 d=2048 c=3, m=1, "
+          f"2 at n=256 a=16 c=16 and a two-writer plan verified and == "
+          f"plain into a poisoned recv", flush=True)
+    return dict(rows[README["n"]], large={k: rows[256][k] for k in (
+        "shape", "ms", "eager_ms", "plain_ms", "fence", "grid", "copy_ctas",
+        "us_per_fence", "bound_ms")})
 
 
 def phase_k3(dev) -> dict:
@@ -394,7 +571,7 @@ def phase_main_path() -> dict:
         ["-n", "32", *readme, "--backend", "cuda_fused", "--chained",
          "--verify"],
     ]
-    exchange.launches = 0
+    exchange.launches = exchange.reps = 0
     fused_rep.launches = 0
     run_cli(runs)
     print("$ python -m tpu_aggcomm_torch.bench", flush=True)
@@ -411,6 +588,7 @@ def phase_main_path() -> dict:
     check("error" not in record and record["platform"] == "gpu",
           f"bench record: {record}")
     counts = {"exchange": exchange.launches, "fused_rep": fused_rep.launches}
+    reps = {"exchange": exchange.reps, "fused_rep": fused_rep.launches}
     print(f"# main-path launches: {counts}", flush=True)
     check(counts["exchange"] > 0, "K1 was not launched on the main path")
     check(counts["fused_rep"] > 0, "K2 was not launched on the main path")
@@ -426,11 +604,11 @@ def phase_main_path() -> dict:
         run_cli([["-n", "32", "-m", "0", "-a", "14", "-d", "2048", "-c",
                   "3", "--backend", "cuda_dma", "--verify",
                   "--results-csv", csv]])
-    counts["dma_steps"] = dma_steps.launches
+    counts["dma_steps"] = reps["dma_steps"] = dma_steps.launches
     print(f"# main-path launches (cuda_dma): {counts['dma_steps']}",
           flush=True)
     check(counts["dma_steps"] > 0, "K3 was not launched on the main path")
-    return {"counts": counts, "bench": record}
+    return {"counts": counts, "reps": reps, "bench": record}
 
 
 def main() -> int:
@@ -453,8 +631,10 @@ def main() -> int:
     k1 = phase_k1(dev)
     k2 = phase_k2(dev)
     k3 = phase_k3(dev)
-    k3_row = dict(k3["lockstep"], concurrent={
-        k: v for k, v in k3["concurrent"].items() if k != "shape"})
+    k3_row = dict(k3["lockstep"], us_per_rep=k3["lockstep"]["ms"] * 1e3,
+                  us_per_fence=k3["lockstep"]["us_per_wave"], concurrent={
+                      k: v for k, v in k3["concurrent"].items()
+                      if k != "shape"})
     main_path = phase_main_path()
     counts = main_path["counts"]
     # no single PyTorch call computes any of these functions (a permuted
@@ -463,8 +643,9 @@ def main() -> int:
     kernels = [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": counts[name],
-         "bound_by": "bytes", "library_ms": None,
-         "matches_plain": row["max_abs_err"] == 0, **row}
+         "reps": main_path["reps"][name], "bound_by": "bytes",
+         "library_ms": None, "matches_plain": row["max_abs_err"] == 0,
+         "us_per_rep": row["ms"] * 1e3, **row}
         for name, source, replaces, row in (
             ("exchange", "tpu_aggcomm_torch/csrc/exchange.cu",
              "tpu_aggcomm/backends/pallas_local.py:83", k1),

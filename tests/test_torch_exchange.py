@@ -92,3 +92,53 @@ def test_wrapper_checks_its_inputs():
     with pytest.raises(ValueError, match="send0"):
         cuda_local.exchange_chain(AggregatorPattern(8, 3, data_size=64),
                                   x[:, :2].contiguous(), 1)
+
+
+@pytest.mark.parametrize("iters", [0, 1, 2, 9])
+def test_chain_lengths_match_pallas_interpret_and_replay(iters):
+    """Every chain length the one-launch kernel special-cases: 0 (send0
+    itself), 1 (no barrier), 2 (one barrier, buf0 then buf1), 9."""
+    rp = RefPattern(8, 3, data_size=64, comm_size=3)
+    p = AggregatorPattern(8, 3, data_size=64, comm_size=3)
+    s0 = np.random.default_rng(iters).integers(
+        0, 2**32, size=(8, 3, 16), dtype=np.uint32)
+    want = np.asarray(ref.fused_exchange_chain(rp, iters, interpret=True)(s0))
+    got = to_reference(cuda_local.exchange_chain(
+        p, from_reference(s0, "cpu"), iters))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, cuda_local.host_replay(p, s0, iters))
+
+
+def test_chain_leaves_send0_unchanged():
+    p = AggregatorPattern(8, 3, data_size=64, comm_size=3)
+    s0 = _send0(8, 3, 16)
+    send0 = from_reference(s0, "cpu")
+    cuda_local.exchange_chain(p, send0, 9)
+    np.testing.assert_array_equal(to_reference(send0), s0)
+
+
+def test_chain_refuses_negative_iters():
+    p = AggregatorPattern(8, 3, data_size=64, comm_size=3)
+    with pytest.raises(ValueError, match="iters must be >= 0"):
+        cuda_local.exchange_chain(p, from_reference(_send0(8, 3, 16), "cpu"),
+                                  -1)
+
+
+def test_one_rep_refuses_a_word_that_is_not_a_rep_word():
+    order = torch.tensor([2, 0, 1], dtype=torch.int32)
+    x = torch.zeros((8, 3, 16), dtype=torch.int32)
+    cuda_local.exchange(x, order, cuda_local.rep_word(7))
+    with pytest.raises(ValueError, match="not a rep word"):
+        cuda_local.exchange(x, order, 0x01020304)
+
+
+def test_barrier_timeout_record_raises_by_name_and_clears():
+    """A CTA's timeout record (cta + 1, rep, arrivals) becomes
+    ``ExchangeBarrierError`` naming them; the record is then cleared."""
+    words = cuda_local._sync_words(torch.device("cpu"))
+    words[1:] = torch.tensor([3, 7, 40], dtype=torch.int32)
+    with pytest.raises(cuda_local.ExchangeBarrierError,
+                       match="CTA 2 .* after rep 7 \\(40 arrivals\\)"):
+        cuda_local.check_barrier("cpu")
+    assert not words.any()
+    cuda_local.check_barrier("cpu")

@@ -126,3 +126,105 @@ def test_fused_rep_wrapper_checks_its_inputs():
     with pytest.raises(ValueError, match="contiguous"):
         fuse.fused_rep(torch.zeros((8, 8, 3), dtype=torch.int32)
                        .transpose(1, 2), tabs)
+
+
+README_CELLS = ([(m, dict(n=32, a=14, d=2048, c=3)) for m in FUSABLE]
+                + [(m, dict(n=256, a=16, d=2048, c=16)) for m in (1, 2)])
+
+
+@pytest.mark.parametrize("method,cfg", README_CELLS,
+                         ids=[f"m{m}-n{c['n']}" for m, c in README_CELLS])
+def test_zero_runs_and_written_cells_tile_the_arena(method, cfg):
+    """Every recv cell is either in exactly one zero run or written by an
+    edge, never both; the trash row of every rank is in a zero run."""
+    s = compile_method(method, AggregatorPattern(
+        cfg["n"], cfg["a"], data_size=cfg["d"], comm_size=cfg["c"]))
+    tabs = fuse.plan_tables(fuse.fuse_plan(s), "cpu")
+    rows = tabs.nprocs * tabs.n_recv_rows
+    cover = np.zeros(rows, dtype=np.int64)
+    for a, b in tabs.zero_runs:
+        assert 0 <= a < b <= rows
+        cover[a:b] += 1
+    written = np.unique(tabs.dst.numpy().astype(np.int64) * tabs.n_recv_rows
+                        + tabs.dslot.numpy())
+    cover[written] += 1
+    assert (cover == 1).all()
+    assert tabs.zero_rows == rows - len(written)
+    trash = np.arange(tabs.nprocs) * tabs.n_recv_rows + tabs.n_recv_rows - 1
+    assert (cover[trash] == 1).all() and not np.isin(trash, written).any()
+    np.testing.assert_array_equal(
+        tabs.zero_ptr.numpy(),
+        np.concatenate([[0], np.cumsum([b - a for a, b in tabs.zero_runs])]))
+
+
+def test_zero_runs_of_merges_contiguous_rows():
+    assert fuse.zero_runs_of(2, 3, [0, 1], [1, 0]) == [(0, 1), (2, 3),
+                                                       (4, 6)]
+    assert fuse.zero_runs_of(1, 2, [0, 0], [0, 1]) == []
+
+
+def _two_writer_plans(d=16):
+    """One recv cell, (1, 0), written in rounds 0 and 2: the later round's
+    row must land."""
+    rounds = ((0, ((0, 0, 1, 0),)), (1, ((1, 0, 0, 1),)),
+              (2, ((0, 1, 1, 0), (1, 1, 0, 0))))
+    kw = dict(nprocs=2, data_size=d, n_send_slots=2, n_recv_slots=2,
+              rounds=rounds, barriers=())
+    from tpu_aggcomm.native.fuse import FusePlan as RefFusePlan
+    return fuse.FusePlan(**kw), RefFusePlan(**kw)
+
+
+def test_cell_written_in_two_rounds_keeps_the_later_row():
+    from tpu_aggcomm.backends.lanes import lane_layout
+    from tpu_aggcomm.native.fuse import build_fused_rep as ref_build
+
+    plan, ref_plan = _two_writer_plans()
+    send = np.random.default_rng(2).integers(0, 2**32, size=(2, 2, 4),
+                                             dtype=np.uint32)
+    want = np.asarray(jax.jit(ref_build(ref_plan, lane=lane_layout(16),
+                                        interpret=True))(send))
+    tabs = fuse.plan_tables(plan, "cpu")
+    got = to_reference(fuse.fused_rep_plain(from_reference(send, "cpu"),
+                                            tabs))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[1, 0], send[0, 1])    # round 2's row
+    np.testing.assert_array_equal(got[0, 1], send[1, 0])
+    assert not got[:, 2].any()
+
+
+@pytest.mark.parametrize("method", FUSABLE + ["two-writer"])
+def test_fused_rep_into_poisoned_out_equals_plain(method):
+    """With ``out`` the CPU path runs the kernel's contract (zero runs,
+    then rounds) over whatever ``out`` held."""
+    if method == "two-writer":
+        plan = _two_writer_plans()[0]
+        send = torch.arange(2 * 2 * 4, dtype=torch.int32).reshape(2, 2, 4)
+    else:
+        _rs, s = _pair(method)
+        plan = fuse.fuse_plan(s)
+        send = from_reference(ref_send(_rs.pattern, 0), "cpu")
+    tabs = fuse.plan_tables(plan, "cpu")
+    out = torch.full((tabs.nprocs, tabs.n_recv_rows, send.shape[2]),
+                     -0x5A5A5A5B, dtype=send.dtype)         # 0xA5A5A5A5
+    got = fuse.fused_rep(send, tabs, out=out)
+    assert got is out
+    assert torch.equal(got, fuse.fused_rep_plain(send, tabs))
+
+
+def test_fused_rep_refuses_a_mismatched_out():
+    _rs, s = _pair(1)
+    tabs = fuse.plan_tables(fuse.fuse_plan(s), "cpu")
+    send = from_reference(ref_send(_rs.pattern, 0), "cpu")
+    with pytest.raises(ValueError, match="out must be"):
+        fuse.fused_rep(send, tabs, out=torch.empty(3, dtype=send.dtype))
+
+
+def test_fence_timeout_record_raises_by_name_and_clears():
+    _rs, s = _pair(1)
+    tabs = fuse.plan_tables(fuse.fuse_plan(s), "cpu")
+    tabs.sync[1:] = torch.tensor([5, 2, 9], dtype=torch.int32)
+    with pytest.raises(fuse.FusedFenceError,
+                       match="CTA 4 .* after round 2 \\(9 arrivals\\)"):
+        fuse.check_fence(tabs)
+    assert not tabs.sync.any()
+    fuse.check_fence(tabs)

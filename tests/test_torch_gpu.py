@@ -15,19 +15,22 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_aggcomm_torch.backends import cuda_local
 from tpu_aggcomm_torch.backends.cuda_dma import (CudaDmaBackend, capacity,
                                                  dma_steps, dma_steps_plain,
                                                  dma_tables, send_arena)
 from tpu_aggcomm_torch.backends.cuda_fused import CudaFusedBackend
 from tpu_aggcomm_torch.backends.cuda_local import (exchange, exchange_chain,
                                                    exchange_plain,
-                                                   host_replay)
+                                                   host_replay, order_table,
+                                                   rep_word)
 from tpu_aggcomm_torch.backends.lanes import from_reference, to_reference
 from tpu_aggcomm_torch.backends.torch_sim import (TorchSimBackend,
                                                   dense_send_lanes)
 from tpu_aggcomm_torch.core.methods import compile_method
 from tpu_aggcomm_torch.core.pattern import AggregatorPattern
-from tpu_aggcomm_torch.native.fuse import (fuse_plan, fused_rep,
+from tpu_aggcomm_torch.native.fuse import (FusePlan, check_fence, fuse_plan,
+                                           fused_plan, fused_rep,
                                            fused_rep_plain, plan_tables)
 
 pytestmark = pytest.mark.gpu
@@ -43,35 +46,144 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.mark.parametrize("iters", [0, 1, 2, 9, 260])
 @pytest.mark.parametrize("n,cb,d", [(32, 14, 2048), (8, 3, 64), (6, 6, 48)])
-def test_exchange_kernel_matches_plain_and_replay(cuda, n, cb, d):
+def test_exchange_kernel_matches_plain_and_replay(cuda, n, cb, d, iters):
+    """One launch per chain (none for iters = 0), byte-equal to the plain
+    chain and the host replay; send0 is left as it was."""
     p = AggregatorPattern(n, cb, data_size=d, comm_size=3)
     rng = np.random.default_rng(n * cb)
     s0 = rng.integers(0, 2**32, size=(n, cb, d // 4), dtype=np.uint32)
     send0 = from_reference(s0, cuda)
-    before = exchange.launches
-    got = exchange_chain(p, send0, 9)
+    before, reps = exchange.launches, exchange.reps
+    got = exchange_chain(p, send0, iters)
     torch.cuda.synchronize()
-    assert exchange.launches == before + 9
-    plain = exchange_chain(p, send0, 9, step=exchange_plain)
+    assert exchange.launches == before + (iters > 0)
+    assert exchange.reps == reps + iters
+    plain = exchange_chain(p, send0, iters, step=exchange_plain)
     np.testing.assert_array_equal(to_reference(got), to_reference(plain))
+    np.testing.assert_array_equal(to_reference(got), host_replay(p, s0, iters))
+    np.testing.assert_array_equal(to_reference(send0), s0)
+
+
+def test_exchange_kernel_hbm_launch_constants(cuda):
+    """An arena past the L2 launch constants (2 x 32 MiB per rep) gives
+    the replay's bytes too."""
+    p = AggregatorPattern(512, 32, data_size=2048, comm_size=3)
+    s0 = np.random.default_rng(7).integers(0, 2**32, size=(512, 32, 512),
+                                           dtype=np.uint32)
+    got = exchange_chain(p, from_reference(s0, cuda), 9)
     np.testing.assert_array_equal(to_reference(got), host_replay(p, s0, 9))
+
+
+def test_exchange_long_chain_outlasts_a_short_timeout(cuda, monkeypatch):
+    """The timeout bounds each wait at a barrier, not the chain: a chain
+    far longer than the timeout completes and equals the plain chain."""
+    monkeypatch.setattr(cuda_local, "TIMEOUT_S", 0.005)
+    p = AggregatorPattern(32, 14, data_size=2048, comm_size=3)
+    send0 = from_reference(np.random.default_rng(2).integers(
+        0, 2**32, size=(32, 14, 512), dtype=np.uint32), cuda)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    got = exchange_chain(p, send0, 20000)
+    stop.record()
+    stop.synchronize()
+    assert start.elapsed_time(stop) > 4 * 0.005 * 1e3
+    assert torch.equal(got, exchange_chain(p, send0, 20000,
+                                           step=exchange_plain))
+
+
+@pytest.mark.parametrize("iters", [2**31 - 1, 2**31])
+def test_exchange_chain_refuses_a_counter_overflow(cuda, iters):
+    p = AggregatorPattern(32, 14, data_size=2048, comm_size=3)
+    send0 = torch.zeros((32, 14, 512), dtype=torch.int32, device=cuda)
+    before = exchange.launches
+    with pytest.raises(ValueError, match="32-bit arrival counter|exceed"):
+        exchange_chain(p, send0, iters)
+    assert exchange.launches == before
+
+
+def test_exchange_barrier_stamps(cuda):
+    """A diagnostic chain's stamps: every CTA arrives at every barrier
+    and leaves it after the last arrival."""
+    p = AggregatorPattern(32, 14, data_size=2048, comm_size=3)
+    grid, iters = cuda_local.chain_grid(p, cuda), 9
+    stamps = torch.zeros((grid, iters - 1, 2), dtype=torch.int64,
+                         device=cuda)
+    s0 = np.random.default_rng(4).integers(0, 2**32, size=(32, 14, 512),
+                                           dtype=np.uint32)
+    got = exchange_chain(p, from_reference(s0, cuda), iters, stamps=stamps)
+    np.testing.assert_array_equal(to_reference(got), host_replay(p, s0,
+                                                                 iters))
+    st = stamps.cpu()
+    assert (st > 0).all()
+    assert (st[:, :, 1].min(0).values >= st[:, :, 0].max(0).values).all()
+
+
+def test_exchange_one_rep_through_the_chain_kernel(cuda):
+    p = AggregatorPattern(32, 14, data_size=2048, comm_size=3)
+    s0 = np.random.default_rng(1).integers(0, 2**32, size=(32, 14, 512),
+                                           dtype=np.uint32)
+    send0 = from_reference(s0, cuda)
+    order = order_table(p, cuda)
+    got = exchange(send0, order, rep_word(5))
+    want = exchange_plain(send0, order, rep_word(5))
+    assert torch.equal(got, want)
+
+
+def _poisoned(tabs, send):
+    return torch.full((tabs.nprocs, tabs.n_recv_rows, send.shape[2]),
+                      0xA5 if send.dtype == torch.uint8 else -0x5A5A5A5B,
+                      dtype=send.dtype, device=send.device)
 
 
 @pytest.mark.parametrize("d", [2048, 36, 30])
 @pytest.mark.parametrize("method", FUSABLE)
 def test_fused_kernel_matches_plain(cuda, method, d):
-    """16-byte vectors (d=2048), 4-byte words (d=36) and bytes (d=30)."""
+    """16-byte vectors (d=2048), 4-byte words (d=36) and bytes (d=30), one
+    launch into a recv pre-filled with 0xA5."""
     s = compile_method(method, AggregatorPattern(32, 14, data_size=d,
                                                  comm_size=3))
     tabs = plan_tables(fuse_plan(s), cuda)
     send = from_reference(dense_send_lanes(s.pattern, 0), cuda)
     before = fused_rep.launches
-    got = fused_rep(send, tabs)
+    got = fused_rep(send, tabs, out=_poisoned(tabs, send))
     torch.cuda.synchronize()
     assert fused_rep.launches == before + 1
+    check_fence(tabs)
     np.testing.assert_array_equal(to_reference(got),
                                   to_reference(fused_rep_plain(send, tabs)))
+
+
+@pytest.mark.parametrize("d", [2048, 36, 30])
+@pytest.mark.parametrize("method", [1, 2])
+def test_fused_kernel_at_n256_uses_the_hand_fence(cuda, method, d):
+    """Rounds of 256 edges need more copying CTAs than one cluster holds,
+    so the hand-rolled fence runs, at every lane width."""
+    s = compile_method(method, AggregatorPattern(256, 16, data_size=d,
+                                                 comm_size=16))
+    tabs = plan_tables(fuse_plan(s), cuda)
+    send = from_reference(dense_send_lanes(s.pattern, 0), cuda)
+    assert fused_plan(send, tabs)["fence"] == "hand"
+    got = fused_rep(send, tabs, out=_poisoned(tabs, send))
+    check_fence(tabs)
+    assert torch.equal(got, fused_rep_plain(send, tabs))
+
+
+def test_fused_kernel_two_writer_plan_keeps_the_later_row(cuda):
+    rounds = ((0, ((0, 0, 1, 0),)), (1, ((1, 0, 0, 1),)),
+              (2, ((0, 1, 1, 0), (1, 1, 0, 0))))
+    plan = FusePlan(nprocs=2, data_size=2048, n_send_slots=2, n_recv_slots=2,
+                    rounds=rounds, barriers=())
+    tabs = plan_tables(plan, cuda)
+    send = torch.randint(-2**31, 2**31 - 1, (2, 2, 512), dtype=torch.int32,
+                         device=cuda)
+    assert fused_plan(send, tabs)["fence"] == "cluster"
+    got = fused_rep(send, tabs, out=_poisoned(tabs, send))
+    check_fence(tabs)
+    want = fused_rep_plain(send, tabs)
+    assert torch.equal(got, want) and torch.equal(got[1, 0], send[0, 1])
 
 
 @pytest.mark.parametrize("backend", [TorchSimBackend, CudaFusedBackend])

@@ -3,10 +3,11 @@
 The port of ``tpu_aggcomm/backends/pallas_fused.py``. The torch_sim
 lowering launches one gather and one scatter per throttle round; this
 backend lowers the SAME schedule data through
-:mod:`tpu_aggcomm_torch.native.fuse` instead: one cooperative launch of
-kernel K2 copies every round's edge rows, with a grid-wide barrier as the
-fence between rounds, so rounds remain distinct steps inside the kernel
-and the ``-c`` semantics the benchmark studies survive fusion.
+:mod:`tpu_aggcomm_torch.native.fuse` instead: one launch of kernel K2 per
+rep zeroes the never-written recv rows and copies every round's edge
+rows, with a fence between rounds, so rounds remain distinct steps inside
+the kernel and the ``-c`` semantics the benchmark studies survive fusion.
+A run ends by checking the fence's timeout record (``FusedFenceError``).
 
 Everything else rides the TorchSimBackend harness unchanged: dense
 rank-axis send lanes in, ``(n, R+1, w)`` recv lanes out (trash row last,
@@ -27,7 +28,8 @@ from __future__ import annotations
 import torch
 
 from tpu_aggcomm_torch.backends.torch_sim import TorchSimBackend
-from tpu_aggcomm_torch.native.fuse import build_fused_rep, fuse_plan
+from tpu_aggcomm_torch.native.fuse import (build_fused_rep, check_fence,
+                                           fuse_plan)
 
 __all__ = ["CudaFusedBackend", "FusedBackendError"]
 
@@ -76,5 +78,7 @@ class CudaFusedBackend(TorchSimBackend):
                 "cuda_fused: the measured phase split differences prefix "
                 "programs of the per-round lowering; use measured phases "
                 "on torch_sim")
-        return super().run(schedule, ntimes=ntimes, iter_=iter_,
-                           verify=verify, chained=chained)
+        out = super().run(schedule, ntimes=ntimes, iter_=iter_,
+                          verify=verify, chained=chained)
+        check_fence(self._compiled(schedule).tables)
+        return out

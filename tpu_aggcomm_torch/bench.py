@@ -18,8 +18,13 @@ in numpy, (3) the kernel chain against the plain torch chain on the card,
 byte for byte.
 
 Measurement: reps run strictly serially (rep r+1 reads rep r's output),
-completion is forced by a checksum readback, and the fixed overhead
-cancels by differencing two chain lengths (harness/chained.py).
+a whole chain is ONE kernel launch (a grid-wide barrier between reps, as
+the reference's chain is one ``lax.scan`` inside one jitted program),
+completion is forced by a checksum readback, and the fixed per-chain
+overhead (launch, readback) cancels by differencing two chain lengths
+(harness/chained.py). The value is therefore the device time per rep of
+a chain running on the card, not a host launch rate. ``kernel_launches``
+counts chain launches and ``reps`` the reps they ran.
 
 There is no CPU fallback: without a card the line is
 ``{"metric": ..., "error": ...}`` and the exit code is 1.
@@ -87,6 +92,7 @@ def measure() -> dict:
     W = DATA_SIZE // 4
     torch.cuda.reset_peak_memory_stats(dev)
     exchange.launches = 0
+    exchange.reps = 0
     send_np = np.arange(PROCS * CB_NODES * W, dtype=np.uint32).reshape(
         PROCS, CB_NODES, W)
     send0 = from_reference(send_np, dev)
@@ -128,6 +134,7 @@ def measure() -> dict:
         "samples": per_reps,
         "hbm_peak_bytes": int(torch.cuda.max_memory_allocated(dev)),
         "kernel_launches": exchange.launches,
+        "reps": exchange.reps,
     }
 
 

@@ -31,6 +31,8 @@ BUILD_DIR = CSRC.parents[1] / "build" / "torch_kernels"
 
 #: the kernel sources in this directory, one object each
 SOURCES = ("exchange.cu", "fused_rep.cu", "dma_steps.cu")
+#: headers the sources include; part of the library's hash
+HEADERS = ("sync.cuh",)
 
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-lineinfo", "-Xcompiler",
@@ -57,7 +59,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.encode())
         h.update((CSRC / src).read_bytes())
     return BUILD_DIR / f"libaggcomm_kernels-{h.hexdigest()[:16]}.so"

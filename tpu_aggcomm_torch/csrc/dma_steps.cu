@@ -45,24 +45,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sync.cuh"
+
 namespace {
 
+using aggcomm::global_ns;
+using aggcomm::load_acquire;
+
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)

@@ -1,134 +1,437 @@
-// K2: a whole throttled schedule in one cooperative launch.
+// K2: a whole throttled schedule in one launch, recv zeroing included.
 //
 // Replaces tpu_aggcomm/native/fuse.py::build_fused_rep (the Pallas
-// `kernel` at :379-388, launched at :390). For each round of a FusePlan
-// it copies every edge row send[src, sslot] -> recv[dst, dslot], and no
-// copy of round k+1 starts before every copy of round k has landed:
-// `cg::this_grid().sync()` between rounds is the fence, so throttle
-// rounds stay distinct steps inside the kernel as the -c semantics
-// require (the Pallas kernel drained a DMA semaphore per round).
+// `kernel` at :379-388, launched at :390, and the XLA zeroing of the recv
+// arena before it at :406). For each round of a FusePlan it copies every
+// edge row send[src, sslot] -> recv[dst, dslot]; no copy of round k+1
+// starts before every copy of round k has landed, so throttle rounds stay
+// distinct steps inside the kernel as the -c semantics require (the
+// Pallas kernel drained a DMA semaphore per round).
 //
 // The plan enters as int32 device tables in CSR form: round_ptr[R+1]
-// delimits each round's slice of src, sslot, dst, dslot[E]. The recv
-// arena (n, R_slots+1, row) arrives zeroed by the wrapper; the trash row
-// (last) is never written. Rows are exactly `row_bytes` wide: the Mosaic
-// (8, 128) tile padding of the TPU kernel is not carried over.
+// delimits each round's slice of src_row, dst_row[E], the flat send row
+// src * S + sslot and the flat recv row dst * (R_slots+1) + dslot of each
+// edge. The rows no edge of any round writes (the trash row among them)
+// enter as runs of contiguous flat recv rows, zero_start[Z] with prefix
+// counts zero_ptr[Z+1]. Rows are exactly `row_bytes` wide (no Mosaic
+// padding).
 //
-// What bounds it on an H100: bytes, E*d read and E*d written for the
-// copies (0.55 us at the README shape, 448 edges of 2048 B), plus the
-// wrapper's zeroing of the recv arena. At the README shape a round holds
-// about 40 edges, so the kernel is latency bound long before it is
-// bandwidth bound: the grid is sized to the largest round (one block per
-// edge row, capped at what can be co-resident for the cooperative
-// launch), threads move 16-byte vectors where row width and pointers
-// allow (4-byte words, or bytes for the uint8 lane layout, otherwise),
-// and the per-round fence is one grid barrier rather than a relaunch.
-#include <cooperative_groups.h>
+// What bounds it on an H100: bytes, E*d read and E*d written by the copies
+// plus the never-written rows zeroed once; at the README shape (11 rounds
+// of about 41 rows) the chain of round fences, not the bytes. The design:
+//
+//   - one launch a rep, in two kinds of CTA of 128 threads. The copying
+//     CTAs (enough for 4 row tasks each per round) run the rounds; a fence
+//     cost grows with the CTAs that arrive, so they are few. The zeroing
+//     CTAs after them (128 KB each, at most one per SM) zero the
+//     never-written rows with wide stores while the rounds run, and take
+//     no part in the fences: zeroed rows and written rows are disjoint, so
+//     the zeroing needs no fence and cannot weaken one. A cell written in
+//     two rounds keeps the later round's row because the rounds are
+//     fenced;
+//   - one fence per round among the copying CTAs, after every copy of the
+//     round, chosen by shape: the hardware barrier of one thread-block
+//     cluster, the copying CTAs being cluster 0, where they fit one
+//     cluster (16 CTAs on the H100), else the hand-rolled release/acquire
+//     barrier of sync.cuh in a cooperative launch. A round's copies, their
+//     reads of `send` included, are issued only after the previous round's
+//     fence: nothing of round k+1 is fetched early;
+//   - a warp's task is a chunk of one row: lanes move neighbouring 16-byte
+//     vectors (4-byte words or bytes when width or pointers do not allow
+//     16), four in flight per lane. The table entries of a warp's next
+//     round are loaded before the fence (one per lane, shuffled to the
+//     warp when the task comes): tables, never data, so a round's copies
+//     still start with the send row's load after the fence;
+//   - with a stamp buffer (diagnostic calls only; the main path passes
+//     null) thread 0 of each CTA writes %globaltimer at its start, after
+//     each round's copies, after each fence and at its end.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace cg = cooperative_groups;
+#include "sync.cuh"
 
 namespace {
 
+constexpr int kFenceHand = 1;
+constexpr int kFenceCluster = 2;
 constexpr int kThreads = 128;
+constexpr int kVpt = 4;                   // vectors in flight per thread
+constexpr int kRowsPerCta = 4;            // row tasks a copying CTA takes
+constexpr long long kZeroCtaBytes = 128 * 1024;  // per zeroing CTA
+constexpr unsigned long long kMaxItems = 1ULL << 31;
 
-template <typename T>
-__global__ void fused_rep_kernel(const unsigned char* __restrict__ send,
-                                 unsigned char* __restrict__ recv,
-                                 const int* __restrict__ round_ptr,
-                                 const int* __restrict__ src,
-                                 const int* __restrict__ sslot,
-                                 const int* __restrict__ dst,
-                                 const int* __restrict__ dslot, int n_rounds,
-                                 int n_send_slots, int n_recv_rows,
-                                 long long row_bytes) {
-  cg::grid_group grid = cg::this_grid();
-  const long long units = row_bytes / (long long)sizeof(T);
-  for (int r = 0; r < n_rounds; ++r) {
-    const int e1 = round_ptr[r + 1];
-    for (int e = round_ptr[r] + blockIdx.x; e < e1; e += gridDim.x) {
-      const T* s = reinterpret_cast<const T*>(
-          send + ((long long)src[e] * n_send_slots + sslot[e]) * row_bytes);
-      T* d = reinterpret_cast<T*>(
-          recv + ((long long)dst[e] * n_recv_rows + dslot[e]) * row_bytes);
-      for (long long u = threadIdx.x; u < units; u += blockDim.x) {
-        d[u] = s[u];
-      }
-    }
-    if (r + 1 < n_rounds) grid.sync();  // the round fence
+struct RepArgs {
+  const unsigned char* send;
+  unsigned char* recv;
+  const int* round_ptr;
+  const int* src_row;  // flat send row of each edge: src * S + sslot
+  const int* dst_row;  // flat recv row of each edge: dst * (R+1) + dslot
+  const int* zero_start;
+  const int* zero_ptr;
+  int n_rounds;
+  int n_zero_runs;
+  unsigned zero_rows;
+  unsigned row_bytes;
+  int copy_ctas;  // CTAs [0, copy_ctas) copy and fence; the rest zero
+  aggcomm::BarrierWords sync;
+  unsigned long long timeout_ns;
+  unsigned long long* stamps;
+};
+
+__device__ __forceinline__ void stamp(const RepArgs& a, int slot) {
+  if (a.stamps != nullptr && threadIdx.x == 0) {
+    const int per_cta = 2 + 2 * (a.n_rounds > 1 ? a.n_rounds : 1);
+    a.stamps[(long long)blockIdx.x * per_cta + slot] = aggcomm::global_ns();
   }
 }
 
+// A warp's task is one chunk of 32 * kVpt units of one row: lane l moves
+// units chunk + l, chunk + l + 32, ... (neighbouring lanes on
+// neighbouring addresses), kVpt loads in flight before the stores.
 template <typename T>
-int launch(const unsigned char* send, unsigned char* recv,
-           const int* round_ptr, const int* src, const int* sslot,
-           const int* dst, const int* dslot, int n_rounds, int n_send_slots,
-           int n_recv_rows, long long row_bytes, int max_round_edges,
-           cudaStream_t stream, int device) {
-  // co-residency cap for this instantiation, once per process
-  static int cap = 0;
-  auto kernel = fused_rep_kernel<T>;
-  if (cap == 0) {
-    int per_sm = 0, sms = 0, coop = 0;
-    cudaError_t err = cudaDeviceGetAttribute(
-        &coop, cudaDevAttrCooperativeLaunch, device);
-    if (err != cudaSuccess) return (int)err;
-    if (!coop) return (int)cudaErrorNotSupported;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, 0);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-    if (err != cudaSuccess) return (int)err;
-    cap = per_sm * sms;
-    if (cap < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+__device__ __forceinline__ unsigned units_of(const RepArgs& a) {
+  return a.row_bytes / (unsigned)sizeof(T);
+}
+
+template <typename T>
+__device__ __forceinline__ unsigned chunks_of(const RepArgs& a) {
+  return (units_of<T>(a) + 32 * kVpt - 1) / (32 * kVpt);
+}
+
+// The table entries of a warp's first 32 tasks of one round: lane l holds
+// task l's flat send and recv rows (-1 past the round's tasks). Loaded
+// before the previous round's fence: the plan tables are never written,
+// so this fetches no data of the round early.
+struct TaskRows {
+  int src;
+  int dst;
+};
+
+template <typename T>
+__device__ __forceinline__ TaskRows task_rows(const RepArgs& a, int k) {
+  TaskRows p{-1, -1};
+  if (k >= a.n_rounds) return p;
+  const unsigned cpr = chunks_of<T>(a), warps = blockDim.x >> 5;
+  const int e0 = a.round_ptr[k], e1 = a.round_ptr[k + 1];
+  const unsigned t = blockIdx.x * warps + (threadIdx.x >> 5) +
+                     (threadIdx.x & 31u) * (unsigned)a.copy_ctas * warps;
+  if (t < (unsigned)(e1 - e0) * cpr) {
+    const int e = e0 + (int)(cpr == 1 ? t : t / cpr);
+    p.src = a.src_row[e];
+    p.dst = a.dst_row[e];
   }
-  int blocks = max_round_edges < cap ? max_round_edges : cap;
-  if (blocks < 1) blocks = 1;
-  void* args[] = {(void*)&send,  (void*)&recv,         (void*)&round_ptr,
-                  (void*)&src,   (void*)&sslot,        (void*)&dst,
-                  (void*)&dslot, (void*)&n_rounds,     (void*)&n_send_slots,
-                  (void*)&n_recv_rows, (void*)&row_bytes};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)kernel, dim3(blocks), dim3(kThreads), args, 0, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return p;
+}
+
+// this CTA's tasks of one round's edge rows, warp by warp; `pre` holds
+// the rows of the warp's first 32 tasks
+template <typename T>
+__device__ __forceinline__ void copy_rows(const RepArgs& a, int e0, int e1,
+                                          TaskRows pre) {
+  const unsigned units = units_of<T>(a), cpr = chunks_of<T>(a);
+  const unsigned lane = threadIdx.x & 31u, warps = blockDim.x >> 5;
+  const unsigned tasks = (unsigned)(e1 - e0) * cpr;
+  const unsigned step = (unsigned)a.copy_ctas * warps;
+  unsigned j = 0;  // the warp's task number in this round
+  for (unsigned t = blockIdx.x * warps + (threadIdx.x >> 5); t < tasks;
+       t += step, ++j) {
+    const unsigned r = cpr == 1 ? t : t / cpr;
+    const unsigned u0 = (t - r * cpr) * 32 * kVpt + lane;
+    int sr, dr;
+    if (j < 32) {
+      sr = __shfl_sync(0xffffffffu, pre.src, j);
+      dr = __shfl_sync(0xffffffffu, pre.dst, j);
+    } else {
+      sr = a.src_row[e0 + r];
+      dr = a.dst_row[e0 + r];
+    }
+    const T* s =
+        reinterpret_cast<const T*>(a.send + (long long)sr * a.row_bytes);
+    T* d = reinterpret_cast<T*>(a.recv + (long long)dr * a.row_bytes);
+    T v[kVpt];
+#pragma unroll
+    for (int k = 0; k < kVpt; ++k) {
+      if (u0 + 32 * k < units) v[k] = s[u0 + 32 * k];
+    }
+#pragma unroll
+    for (int k = 0; k < kVpt; ++k) {
+      if (u0 + 32 * k < units) d[u0 + 32 * k] = v[k];
+    }
+  }
+}
+
+// a zeroing CTA's share (index zb of nz) of every never-written row; flat
+// zero row q maps to the arena through the runs
+template <typename T>
+__device__ __forceinline__ void zero_share(const RepArgs& a, unsigned zb,
+                                           unsigned nz) {
+  const unsigned units = units_of<T>(a), cpr = chunks_of<T>(a);
+  const unsigned lane = threadIdx.x & 31u, warps = blockDim.x >> 5;
+  const unsigned tasks = a.zero_rows * cpr;
+  int z = 0;  // the run of the warp's last row
+  for (unsigned t = zb * warps + (threadIdx.x >> 5); t < tasks;
+       t += nz * warps) {
+    const unsigned q = cpr == 1 ? t : t / cpr;
+    const unsigned u0 = (t - q * cpr) * 32 * kVpt + lane;
+    if (!((unsigned)a.zero_ptr[z] <= q && q < (unsigned)a.zero_ptr[z + 1])) {
+      int lo = 0, hi = a.n_zero_runs - 1;  // last run with zero_ptr <= q
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if ((unsigned)a.zero_ptr[mid] <= q) lo = mid; else hi = mid - 1;
+      }
+      z = lo;
+    }
+    T* d = reinterpret_cast<T*>(
+        a.recv + ((long long)a.zero_start[z] + (q - a.zero_ptr[z])) *
+                     a.row_bytes);
+#pragma unroll
+    for (int k = 0; k < kVpt; ++k) {
+      if (u0 + 32 * k < units) d[u0 + 32 * k] = T{};
+    }
+  }
+}
+
+template <typename T, int FENCE>
+__global__ void fused_rep_kernel(RepArgs a) {
+  stamp(a, 0);
+  const int P = a.n_rounds > 1 ? a.n_rounds : 1;
+  if ((int)blockIdx.x >= a.copy_ctas) {  // a zeroing CTA: no fence to keep
+    zero_share<T>(a, blockIdx.x - a.copy_ctas, gridDim.x - a.copy_ctas);
+    stamp(a, 1 + 2 * P);
+    return;
+  }
+  TaskRows pre = task_rows<T>(a, 0);
+  for (int k = 0; k < a.n_rounds; ++k) {
+    copy_rows<T>(a, a.round_ptr[k], a.round_ptr[k + 1], pre);
+    pre = task_rows<T>(a, k + 1);  // the next round's table entries
+    if (a.stamps != nullptr) {
+      __syncthreads();
+      stamp(a, 1 + 2 * k);
+    }
+    if (k + 1 < a.n_rounds) {  // the round fence, among the copying CTAs
+      if (FENCE == kFenceCluster) {
+        aggcomm::cluster_arrive_wait();
+      } else if (aggcomm::grid_arrive_wait(
+                     a.sync, (unsigned)(k + 1) * (unsigned)a.copy_ctas, k,
+                     a.timeout_ns)) {
+        return;
+      }
+    }
+    stamp(a, 2 + 2 * k);
+  }
+  stamp(a, 1 + 2 * P);
+}
+
+int lane_size(const void* send, const void* recv, long long row_bytes) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(send) |
+                         reinterpret_cast<uintptr_t>(recv);
+  if (row_bytes % 16 == 0 && addr % 16 == 0) return 16;
+  if (row_bytes % 4 == 0 && addr % 4 == 0) return 4;
+  return 1;
+}
+
+template <int FENCE>
+const void* pick(int size) {
+  if (size == 16) return (const void*)fused_rep_kernel<uint4, FENCE>;
+  if (size == 4) return (const void*)fused_rep_kernel<unsigned int, FENCE>;
+  return (const void*)fused_rep_kernel<unsigned char, FENCE>;
+}
+
+cudaError_t sm_count(int device, int* out) {
+  static int sms = 0;
+  if (sms == 0) {
+    cudaError_t err =
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+  }
+  *out = sms;
+  return cudaSuccess;
+}
+
+// The largest one-cluster grid of this instantiation: 16 CTAs where the
+// card schedules such a cluster, else the portable 8. Once per kernel.
+cudaError_t cluster_cap(const void* fn, int* out) {
+  static const void* fns[32];
+  static int caps[32];
+  static int used = 0;
+  for (int i = 0; i < used; ++i) {
+    if (fns[i] == fn) {
+      *out = caps[i];
+      return cudaSuccess;
+    }
+  }
+  cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                           1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 16;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(16);
+  cfg.blockDim = dim3(kThreads);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused size is an answer, not a fault
+    clusters = 0;
+  }
+  *out = clusters >= 1 ? 16 : 8;
+  if (used < 32) {
+    fns[used] = fn;
+    caps[used++] = *out;
+  }
+  return cudaSuccess;
+}
+
+struct Plan {
+  const void* fn;
+  int grid;
+  int copy_ctas;
+  int fence;
+};
+
+// The launch for these arguments: lane width, fence, the copying CTAs
+// (kRowsPerCta row tasks each per round; a task is a chunk of 32 * kVpt
+// units) and the zeroing CTAs after them (kZeroCtaBytes each, at most one
+// per SM). The fence is the cluster barrier where the copying CTAs fit
+// one cluster, else the hand-rolled one. With the cluster fence the
+// copying CTAs are cluster 0 and the zeroing CTAs fill further clusters
+// of the same size; otherwise the whole grid is co-resident (a
+// cooperative launch).
+cudaError_t make_plan(const void* send, const void* recv, long long row_bytes,
+                      int max_round_edges, long long zero_rows, int device,
+                      Plan* p) {
+  const int size = lane_size(send, recv, row_bytes);
+  const unsigned long long units = row_bytes / size;
+  if ((unsigned long long)max_round_edges * units >= kMaxItems ||
+      (unsigned long long)zero_rows * units >= kMaxItems)
+    return cudaErrorInvalidValue;
+  const long long tasks = (long long)max_round_edges *
+                          (long long)((units + 32 * kVpt - 1) / (32 * kVpt));
+  long long copy = (tasks + kRowsPerCta - 1) / kRowsPerCta;
+  if (copy < 1) copy = 1;
+  long long zero = 0;
+  if (zero_rows > 0) {
+    zero = (zero_rows * row_bytes + kZeroCtaBytes - 1) / kZeroCtaBytes;
+  }
+  int sms = 0, per_sm = 0, ccap = 0;
+  cudaError_t err = sm_count(device, &sms);
+  if (err != cudaSuccess) return err;
+  // at most one zeroing CTA per SM: more saturate HBM with zero stores and
+  // stretch the latency-bound round chain that runs beside them
+  if (zero > sms) zero = sms;
+  err = cluster_cap(pick<kFenceCluster>(size), &ccap);
+  if (err != cudaSuccess) return err;
+  if (copy <= ccap) {
+    p->fence = kFenceCluster;
+    p->fn = pick<kFenceCluster>(size);
+    zero = (zero + copy - 1) / copy * copy;  // whole clusters
+  } else {
+    p->fence = kFenceHand;
+    p->fn = pick<kFenceHand>(size);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, p->fn,
+                                                        kThreads, 0);
+    if (err != cudaSuccess) return err;
+    const long long cap = (long long)per_sm * sms;
+    if (cap < (zero > 0 ? 2 : 1)) return cudaErrorCooperativeLaunchTooLarge;
+    if (copy > cap - (zero > 0 ? 1 : 0)) copy = cap - (zero > 0 ? 1 : 0);
+    if (zero > cap - copy) zero = cap - copy;
+  }
+  p->copy_ctas = (int)copy;
+  p->grid = (int)(copy + zero);
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// send: (n, n_send_slots, row_bytes) bytes; recv: (n, n_recv_rows,
-// row_bytes), zeroed by the caller. round_ptr: n_rounds+1 int32; src,
-// sslot, dst, dslot: E int32; all on the device. max_round_edges: the
-// largest round's edge count (sizes the grid). Returns the launch's
-// cudaError_t (0 on success).
-extern "C" int aggcomm_fused_rep(const void* send, void* recv,
-                                 const int* round_ptr, const int* src,
-                                 const int* sslot, const int* dst,
-                                 const int* dslot, int n_rounds,
-                                 int n_send_slots, int n_recv_rows,
-                                 long long row_bytes, int max_round_edges,
-                                 void* stream, int device) {
+// One rep. send: (n, S, row_bytes) bytes; recv: (n, R+1, row_bytes), any
+// contents: every row no edge writes is in the zero runs and is zeroed
+// here. round_ptr: n_rounds+1 int32; src_row, dst_row: E int32 flat rows;
+// zero_start: Z int32 flat rows; zero_ptr: Z+1 int32 prefix row counts;
+// all on the device. max_round_edges: the largest round's edge count.
+// sync: 4 int32 (the hand-rolled fence's counter, zeroed here in the
+// stream, and its error record). stamps: null, or (grid, 2 + 2 *
+// max(n_rounds, 1)) uint64. Returns the launch's cudaError_t (0 on
+// success).
+extern "C" int aggcomm_fused_rep(
+    const void* send, void* recv, const int* round_ptr, const int* src_row,
+    const int* dst_row, const int* zero_start, const int* zero_ptr,
+    int n_rounds, int n_zero_runs, long long zero_rows, long long row_bytes,
+    int max_round_edges, void* sync, unsigned long long timeout_ns,
+    void* stamps, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (n_rounds <= 0 || row_bytes <= 0) return 0;
-  const unsigned char* s = static_cast<const unsigned char*>(send);
-  unsigned char* r = static_cast<unsigned char*>(recv);
+  if (n_zero_runs <= 0) zero_rows = 0;
+  if (row_bytes <= 0 || (n_rounds <= 0 && zero_rows <= 0)) return 0;
+  Plan p;
+  err = make_plan(send, recv, row_bytes, max_round_edges, zero_rows, device,
+                  &p);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(send) |
-                         reinterpret_cast<uintptr_t>(recv);
-  if (row_bytes % 16 == 0 && addr % 16 == 0) {
-    return launch<uint4>(s, r, round_ptr, src, sslot, dst, dslot, n_rounds,
-                         n_send_slots, n_recv_rows, row_bytes,
-                         max_round_edges, st, device);
+  if (p.fence == kFenceHand && n_rounds > 1) {
+    err = cudaMemsetAsync(sync, 0, sizeof(unsigned), st);
+    if (err != cudaSuccess) return (int)err;
   }
-  if (row_bytes % 4 == 0 && addr % 4 == 0) {
-    return launch<unsigned int>(s, r, round_ptr, src, sslot, dst, dslot,
-                                n_rounds, n_send_slots, n_recv_rows,
-                                row_bytes, max_round_edges, st, device);
+  RepArgs a;
+  a.send = static_cast<const unsigned char*>(send);
+  a.recv = static_cast<unsigned char*>(recv);
+  a.round_ptr = round_ptr;
+  a.src_row = src_row;
+  a.dst_row = dst_row;
+  a.zero_start = zero_start;
+  a.zero_ptr = zero_ptr;
+  a.n_rounds = n_rounds;
+  a.n_zero_runs = n_zero_runs;
+  a.zero_rows = (unsigned)zero_rows;
+  a.row_bytes = (unsigned)row_bytes;
+  a.copy_ctas = p.copy_ctas;
+  a.sync.counter = static_cast<unsigned*>(sync);
+  a.sync.error = static_cast<int*>(sync) + 1;
+  a.timeout_ns = timeout_ns;
+  a.stamps = static_cast<unsigned long long*>(stamps);
+  void* args[] = {(void*)&a};
+  if (p.fence == kFenceCluster) {
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = p.copy_ctas;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(p.grid);
+    cfg.blockDim = dim3(kThreads);
+    cfg.stream = st;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelExC(&cfg, p.fn, args);
+  } else {
+    err = cudaLaunchCooperativeKernel(p.fn, dim3(p.grid), dim3(kThreads),
+                                      args, 0, st);
   }
-  return launch<unsigned char>(s, r, round_ptr, src, sslot, dst, dslot,
-                               n_rounds, n_send_slots, n_recv_rows,
-                               row_bytes, max_round_edges, st, device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// What aggcomm_fused_rep would launch for these arguments, into out[4]:
+// grid, copying CTAs, fence (1 hand-rolled, 2 cluster), lane width in
+// bytes. Returns a cudaError_t.
+extern "C" int aggcomm_fused_rep_plan(const void* send, const void* recv,
+                                      long long row_bytes,
+                                      int max_round_edges, long long zero_rows,
+                                      int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Plan p;
+  err = make_plan(send, recv, row_bytes, max_round_edges, zero_rows, device,
+                  &p);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = p.grid;
+  out[1] = p.copy_ctas;
+  out[2] = p.fence;
+  out[3] = lane_size(send, recv, row_bytes);
+  return 0;
 }

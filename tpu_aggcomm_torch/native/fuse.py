@@ -10,17 +10,18 @@ The port of ``tpu_aggcomm/native/fuse.py``, in two halves:
   export (:func:`plan_round_matrices`, :func:`semaphore_deps`).
 - **kernel half (new)** — kernel K2 (``csrc/fused_rep.cu``) replaces
   ``build_fused_rep``'s Pallas kernel (``fuse.py:354-410``): the plan
-  enters as int32 CSR tables (:func:`plan_tables`), and one cooperative
-  launch copies every round's edge rows, with a grid-wide barrier between
-  rounds as the fence, so rounds stay distinct steps. The wrapper
-  :func:`fused_rep` zeroes the recv arena, takes the plain version
-  (:func:`fused_rep_plain`, a Python loop of per-round index copies) for
-  a CPU tensor, launches the kernel for a CUDA tensor and counts launches
-  in ``fused_rep.launches``.
+  enters as int32 CSR tables (:func:`plan_tables`), with the recv rows no
+  edge writes as runs of contiguous rows, and ONE launch per rep zeroes
+  those rows and copies every round's edge rows, with one fence per
+  round, so rounds stay distinct steps. The wrapper :func:`fused_rep`
+  takes the plain version (:func:`fused_rep_plain`, a Python loop of
+  per-round index copies) for a CPU tensor, launches the kernel for a
+  CUDA tensor into a ``torch.empty`` (or the caller's ``out``) and counts
+  launches in ``fused_rep.launches``.
 
 What bounds K2 on an H100: bytes — E*d read and E*d written by the
-copies, plus n*(R+1)*d of zeroing; at the README shape (448 edges in 11
-rounds) the launch and the ten grid barriers dominate. The Mosaic tile
+copies, plus the never-written rows zeroed; at the README shape (448
+edges in 11 rounds) the ten round fences dominate. The Mosaic tile
 padding of the TPU kernel (``_row_geometry``) is not carried over: rows
 are exactly ``d`` bytes. ``MAX_FUSED_EDGES`` is kept as the reference
 has it, although it is a Mosaic instruction-count limit the table-driven
@@ -44,8 +45,9 @@ from tpu_aggcomm_torch.core.schedule import Schedule, barrier_rounds_of
 
 __all__ = ["MAX_FUSED_EDGES", "UnfusableScheduleError", "FusePlan",
            "fuse_plan", "plan_round_matrices", "semaphore_deps",
-           "FusedTables", "plan_tables", "fused_rep", "fused_rep_plain",
-           "build_fused_rep"]
+           "FusedTables", "plan_tables", "zero_runs_of", "fused_rep",
+           "fused_rep_plain", "fused_plan", "check_fence", "build_fused_rep",
+           "FusedFenceError"]
 
 #: Hard ceiling on the per-kernel copy count: each edge unrolls to one
 #: DMA start + wait pair in the Mosaic instruction stream, so a flagship
@@ -206,11 +208,27 @@ def semaphore_deps(plan: FusePlan) -> list:
 # ---------------------------------------------------------------------------
 # kernel half
 
+#: the round fence the kernel chose, by its code: the release/acquire
+#: counter of csrc/sync.cuh, or the hardware barrier of one thread-block
+#: cluster (where the copying CTAs fit one cluster)
+FENCE_NAMES = {1: "hand", 2: "cluster"}
+#: how long one wait of a CTA at the hand-rolled fence may last
+TIMEOUT_S = 10.0
+
+
+class FusedFenceError(RuntimeError):
+    """A CTA of K2 waited past the timeout at a round fence; the rep did
+    not complete."""
+
 
 @dataclass(frozen=True)
 class FusedTables:
     """A plan as the kernel reads it: CSR round pointers and per-edge
-    int32 tables on one device, plus the arena geometry."""
+    int32 tables on one device, the arena geometry, and the recv rows no
+    edge of any round writes (the trash row among them) as runs of
+    contiguous flat rows ``dst * n_recv_rows + dslot``: ``zero_runs`` the
+    host ``(start, stop)`` pairs, ``zero_start``/``zero_ptr`` their device
+    CSR form (run starts; prefix row counts)."""
 
     nprocs: int
     n_send_slots: int
@@ -222,10 +240,32 @@ class FusedTables:
     sslot: torch.Tensor
     dst: torch.Tensor
     dslot: torch.Tensor
+    src_row: torch.Tensor       # flat send row src * S + sslot per edge
+    dst_row: torch.Tensor       # flat recv row dst * (R+1) + dslot
+    zero_runs: tuple
+    zero_rows: int
+    zero_start: torch.Tensor
+    zero_ptr: torch.Tensor
+    sync: torch.Tensor          # the hand-rolled fence's counter + error
 
     @property
     def device(self) -> torch.device:
         return self.src.device
+
+    @property
+    def n_rounds(self) -> int:
+        return len(self.round_ptr) - 1
+
+
+def zero_runs_of(n: int, n_recv_rows: int, dst, dslot) -> list:
+    """The flat recv rows of an ``(n, n_recv_rows)`` arena that no edge
+    writes, as ``(start, stop)`` runs of contiguous rows, in order."""
+    free = np.ones(n * n_recv_rows, dtype=bool)
+    free[np.asarray(dst, dtype=np.int64) * n_recv_rows
+         + np.asarray(dslot, dtype=np.int64)] = False
+    edges = np.diff(np.concatenate([[0], free.astype(np.int8), [0]]))
+    return list(zip(np.flatnonzero(edges == 1).tolist(),
+                    np.flatnonzero(edges == -1).tolist()))
 
 
 def plan_tables(plan: FusePlan, device) -> FusedTables:
@@ -242,12 +282,22 @@ def plan_tables(plan: FusePlan, device) -> FusedTables:
         return torch.tensor(a, dtype=torch.int32, device=device)
 
     counts = np.diff(np.asarray(ptr))
+    n_recv_rows = plan.n_recv_slots + 1
+    runs = zero_runs_of(plan.nprocs, n_recv_rows, cols[2], cols[3])
+    lens = [b - a for a, b in runs]
     return FusedTables(
         nprocs=plan.nprocs, n_send_slots=plan.n_send_slots,
-        n_recv_rows=plan.n_recv_slots + 1, round_ptr=tuple(ptr),
+        n_recv_rows=n_recv_rows, round_ptr=tuple(ptr),
         max_round_edges=int(counts.max()) if len(counts) else 0,
         round_ptr_dev=t(ptr), src=t(cols[0]), sslot=t(cols[1]),
-        dst=t(cols[2]), dslot=t(cols[3]))
+        dst=t(cols[2]), dslot=t(cols[3]),
+        src_row=t([s * plan.n_send_slots + ss
+                   for s, ss in zip(cols[0], cols[1])]),
+        dst_row=t([d * n_recv_rows + ds for d, ds in zip(cols[2], cols[3])]),
+        zero_runs=tuple(runs),
+        zero_rows=sum(lens), zero_start=t([a for a, _b in runs]),
+        zero_ptr=t(np.concatenate([[0], np.cumsum(lens)]).tolist()),
+        sync=torch.zeros(4, dtype=torch.int32, device=device))
 
 
 def fused_rep_plain(send: torch.Tensor, tabs: FusedTables) -> torch.Tensor:
@@ -263,20 +313,44 @@ def fused_rep_plain(send: torch.Tensor, tabs: FusedTables) -> torch.Tensor:
     return recv
 
 
+def _fused_rep_into(send: torch.Tensor, tabs: FusedTables,
+                    out: torch.Tensor) -> torch.Tensor:
+    """The kernel's contract in plain torch, into any ``out``: the zero
+    runs zeroed, then the rounds' copies in order."""
+    flat = out.view(-1, out.shape[2])
+    for a, b in tabs.zero_runs:
+        flat[a:b] = 0
+    ptr = tabs.round_ptr
+    src, ss = tabs.src.long(), tabs.sslot.long()
+    dst, ds = tabs.dst.long(), tabs.dslot.long()
+    for k in range(len(ptr) - 1):
+        a, b = ptr[k], ptr[k + 1]
+        out[dst[a:b], ds[a:b]] = send[src[a:b], ss[a:b]]
+    return out
+
+
 @functools.cache
-def _c_fused_rep():
-    """The kernel's C entry point, built and loaded at first use."""
+def _c_lib():
+    """The kernel's C entry points, built and loaded at first use."""
     from tpu_aggcomm_torch.csrc.build import load
-    fn = load().aggcomm_fused_rep
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, p, i, i, i, ctypes.c_longlong, i, p, i]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = load()
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = lib.aggcomm_fused_rep
+    fn.argtypes = [p, p, p, p, p, p, p, i, i, ll, ll, i, p,
+                   ctypes.c_ulonglong, p, p, i]
+    fn.restype = i
+    plan = lib.aggcomm_fused_rep_plan
+    plan.argtypes = [p, p, ll, i, ll, i, ctypes.POINTER(i)]
+    plan.restype = i
+    return fn, plan
 
 
-def fused_rep(send: torch.Tensor, tabs: FusedTables) -> torch.Tensor:
-    """One rep of the whole plan: recv (n, R+1, w), trash row last and
-    zero. CPU tensors take :func:`fused_rep_plain`."""
+def _dev_index(t: torch.Tensor) -> int:
+    return t.device.index if t.device.index is not None \
+        else torch.cuda.current_device()
+
+
+def _check_args(send: torch.Tensor, tabs: FusedTables, out) -> None:
     if (send.dim() != 3 or send.dtype not in (torch.int32, torch.uint8)
             or tuple(send.shape[:2]) != (tabs.nprocs, tabs.n_send_slots)):
         raise ValueError(
@@ -287,24 +361,76 @@ def fused_rep(send: torch.Tensor, tabs: FusedTables) -> torch.Tensor:
     if send.device != tabs.device:
         raise ValueError(f"fused_rep: send on {send.device}, plan tables "
                          f"on {tabs.device}")
-    if send.device.type == "cpu":
-        return fused_rep_plain(send, tabs)
-    recv = torch.zeros((tabs.nprocs, tabs.n_recv_rows, send.shape[2]),
+    shape = (tabs.nprocs, tabs.n_recv_rows, send.shape[2])
+    if out is not None and (tuple(out.shape) != shape
+                            or out.dtype != send.dtype
+                            or out.device != send.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"fused_rep: out must be a contiguous {shape} "
+                         f"{send.dtype} tensor on {send.device}")
+
+
+def fused_plan(send: torch.Tensor, tabs: FusedTables) -> dict:
+    """What :func:`fused_rep` launches for ``send`` on a CUDA device:
+    ``grid``, ``copy_ctas`` (the CTAs that copy and fence; the rest zero),
+    ``fence`` (its name) and the lane width in bytes."""
+    recv = torch.empty((tabs.nprocs, tabs.n_recv_rows, send.shape[2]),
                        dtype=send.dtype, device=send.device)
-    n_rounds = len(tabs.round_ptr) - 1
-    dev = send.device.index if send.device.index is not None \
-        else torch.cuda.current_device()
-    rc = _c_fused_rep()(
-        send.data_ptr(), recv.data_ptr(), tabs.round_ptr_dev.data_ptr(),
-        tabs.src.data_ptr(), tabs.sslot.data_ptr(), tabs.dst.data_ptr(),
-        tabs.dslot.data_ptr(), n_rounds, tabs.n_send_slots,
-        tabs.n_recv_rows, send.shape[2] * send.element_size(),
-        tabs.max_round_edges, torch.cuda.current_stream(dev).cuda_stream,
-        dev)
+    out = (ctypes.c_int * 4)()
+    rc = _c_lib()[1](
+        send.data_ptr(), recv.data_ptr(), send.shape[2] * send.element_size(),
+        tabs.max_round_edges, tabs.zero_rows, _dev_index(send), out)
+    if rc != 0:
+        raise RuntimeError(f"fused_rep plan query failed: cudaError {rc}")
+    return dict(grid=out[0], copy_ctas=out[1], fence=FENCE_NAMES[out[2]],
+                lane_bytes=out[3])
+
+
+def check_fence(tabs: FusedTables) -> None:
+    """Wait for the device and raise :class:`FusedFenceError` if a CTA of
+    an earlier launch on these tables timed out at a round fence (the
+    record is cleared)."""
+    cta1, rnd, got = tabs.sync[1:].tolist()
+    if cta1:
+        tabs.sync.zero_()
+        raise FusedFenceError(
+            f"fused_rep: CTA {cta1 - 1} waited over {TIMEOUT_S} s at the "
+            f"fence after round {rnd} ({got} arrivals); the rep did not "
+            f"complete")
+
+
+def fused_rep(send: torch.Tensor, tabs: FusedTables,
+              out: torch.Tensor | None = None, *,
+              stamps: torch.Tensor | None = None) -> torch.Tensor:
+    """One rep of the whole plan: recv (n, R+1, w), trash row last and
+    zero, into ``out`` when given (its contents are overwritten, every
+    row). CPU tensors take the plain version. On the card: ONE launch,
+    the never-written rows zeroed inside it; ``stamps`` (int64, ``grid *
+    (2 + 2 * max(R, 1))``, diagnostic calls only) receives each CTA's
+    %globaltimer stamps. The call stays asynchronous: :func:`check_fence`
+    raises a fence timeout after the device has run it."""
+    _check_args(send, tabs, out)
+    if send.device.type == "cpu":
+        if out is None:
+            return fused_rep_plain(send, tabs)
+        return _fused_rep_into(send, tabs, out)
+    if out is None:
+        out = torch.empty((tabs.nprocs, tabs.n_recv_rows, send.shape[2]),
+                          dtype=send.dtype, device=send.device)
+    dev = _dev_index(send)
+    rc = _c_lib()[0](
+        send.data_ptr(), out.data_ptr(), tabs.round_ptr_dev.data_ptr(),
+        tabs.src_row.data_ptr(), tabs.dst_row.data_ptr(),
+        tabs.zero_start.data_ptr(), tabs.zero_ptr.data_ptr(), tabs.n_rounds,
+        len(tabs.zero_runs), tabs.zero_rows,
+        send.shape[2] * send.element_size(), tabs.max_round_edges,
+        tabs.sync.data_ptr(), int(TIMEOUT_S * 1e9),
+        None if stamps is None else stamps.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream, dev)
     if rc != 0:
         raise RuntimeError(f"fused_rep kernel launch failed: cudaError {rc}")
     fused_rep.launches += 1
-    return recv
+    return out
 
 
 fused_rep.launches = 0
@@ -312,10 +438,12 @@ fused_rep.launches = 0
 
 def build_fused_rep(plan: FusePlan, *, device):
     """``rep(send (n, S, w) lanes) -> recv (n, R+1, w) lanes`` running the
-    whole plan through :func:`fused_rep` on ``device``."""
+    whole plan through :func:`fused_rep` on ``device``; its tables are
+    ``rep.tables`` (for :func:`check_fence`)."""
     tabs = plan_tables(plan, device)
 
     def rep(send):
         return fused_rep(send, tabs)
 
+    rep.tables = tabs
     return rep
