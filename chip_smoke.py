@@ -28,13 +28,19 @@ first failure (no phase's failure is caught):
    hand-rolled one at n=256) and the split of a rep from the kernel's
    %globaltimer stamps (launch, copies, fences), the zeroing alone,
    beside the bound;
-4. kernel K3 (``csrc/dma_steps.cu``) through ``cuda_dma`` (lockstep) and
-   ``cuda_dma_conc`` (concurrent): its co-resident CTA cap, then the 16
-   stepped methods and m=13 ``-b 1`` at the README shape, m=1 and m=18
-   at n=256 a=16 c=16 and m=1 at n=1024 a=64 c=16 (1024 CTAs, 8202
-   steps), each verified and compared byte for byte with the plain
-   version on the whole arena; m=1 at each shape timed beside its steps,
-   waves, table-build seconds and bounds;
+4. kernel K3 (``csrc/dma_steps.cu``, one launch per rep) through
+   ``cuda_dma`` (lockstep) and ``cuda_dma_conc`` (concurrent): its
+   co-resident CTA cap and the card's one-way signal latency from an
+   independent probe (``csrc/signal_probe.cu``: two CTAs on two SMs
+   ping-pong a counter); then the 16 stepped methods and m=13 ``-b 1`` at
+   the README shape, m=1 and m=18 at n=256 a=16 c=16 and m=1 at n=1024
+   a=64 c=16 (1024 CTAs, 8202 steps), each verified and compared byte for
+   byte with the plain version on the whole arena, launched into a recv
+   pre-filled with 0xA5; m=1 at each shape timed beside its steps, waves,
+   table-build seconds and both bounds (bytes; waves x the signal
+   latency), its graph replays checked against the plain version, and at
+   the README shape the split of a wave from rank 0's %globaltimer stamps
+   (post, wait) and the zeroing;
 
    each kernel and plain version is timed twice: on the device alone (a
    CUDA graph of many calls, replayed) and as Python launches it, one
@@ -454,12 +460,93 @@ def phase_k2(dev) -> dict:
         "us_per_fence", "bound_ms")})
 
 
+def signal_latency_us(iters: int = 20000) -> dict:
+    """The card's one-way release -> acquire signal latency between two
+    SMs, from ``csrc/signal_probe.cu`` (not K3's code): two CTAs that
+    cannot share an SM ping-pong a counter ``iters`` times; CTA 0's
+    %globaltimer span over 2 * iters, the second of two runs."""
+    import ctypes
+
+    import torch
+
+    from tpu_aggcomm_torch.csrc.build import load
+    fn = load().aggcomm_signal_probe
+    p = ctypes.c_void_p
+    fn.argtypes = [p, ctypes.c_int, p, p, ctypes.c_ulonglong, p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    for _ in range(2):
+        counters = torch.zeros(64, dtype=torch.int32, device="cuda")
+        out = torch.zeros(3, dtype=torch.int64, device="cuda")
+        error = torch.zeros(3, dtype=torch.int32, device="cuda")
+        rc = fn(counters.data_ptr(), iters, out.data_ptr(), error.data_ptr(),
+                10**10, torch.cuda.current_stream().cuda_stream,
+                torch.cuda.current_device())
+        check(rc == 0, f"signal probe launch failed: cudaError {rc}")
+        torch.cuda.synchronize()
+        check(not error.any(), f"signal probe timed out: {error.tolist()}")
+    span_ns, sm0, sm1 = out.tolist()
+    check(sm0 != sm1 and span_ns > 0, f"signal probe: SMs {sm0}, {sm1}, "
+          f"span {span_ns} ns")
+    return dict(us=span_ns / (2 * iters) / 1e3, sms=[sm0, sm1], iters=iters)
+
+
+def k3_stamp_split(send, tabs, device_ms: float, runs: int = 20) -> dict:
+    """How one K3 rep splits, from rank 0's %globaltimer stamps (mean over
+    ``runs`` launches after one): zeroing, then per wave the post (copies,
+    the CTA barrier, the releases) and the wait (the last release to the
+    wait's end), and the launch (graph-timed device time less the
+    stamped span), in microseconds."""
+    import torch
+
+    from tpu_aggcomm_torch.backends.cuda_dma import dma_steps
+    stamps = torch.zeros((tabs.n_waves + 1, 3), dtype=torch.int64,
+                         device=send.device)
+    acc = None
+    for _ in range(runs + 1):
+        dma_steps(send, tabs, stamps=stamps)
+        st = stamps.double()
+        w = st[1:]
+        one = torch.stack([
+            st[0, 1] - st[0, 0], (w[:, 1] - w[:, 0]).sum(),
+            (w[:, 2] - w[:, 1]).sum(), st[0, 2] - st[0, 0]])
+        acc = one * 0 if acc is None else acc + one   # first run: warm-up
+    zero_us, post_us, wait_us, span_us = (acc / runs / 1e3).tolist()
+    return dict(zero_us=zero_us, post_us=post_us, wait_us=wait_us,
+                us_per_wave_post=post_us / tabs.n_waves,
+                us_per_wave_wait=wait_us / tabs.n_waves, span_us=span_us,
+                launch_us=device_ms * 1e3 - span_us)
+
+
+def k3_graph_check(send, tabs, plain, label: str) -> None:
+    """A CUDA graph of two K3 launches, replayed twice into a recv
+    poisoned before each replay, equals plain: the graph-timed numbers
+    are of a kernel that does the work."""
+    import torch
+
+    from tpu_aggcomm_torch.backends.cuda_dma import (check_protocol,
+                                                     dma_steps)
+    out = torch.empty_like(plain)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(2):
+            dma_steps(send, tabs, out=out, check=False)
+    for _ in range(2):
+        out.fill_(0xA5)
+        graph.replay()
+        torch.cuda.synchronize()
+        check_protocol(tabs)
+        check(torch.equal(out, plain), f"K3 {label}: graph replay != plain")
+
+
 def phase_k3(dev) -> dict:
     """K3 through cuda_dma and cuda_dma_conc: every stepped method (and
     m=13 -b 1) at the README shape, m=1 and m=18 at n=256 a=16 c=16 and
     m=1 at n=1024 a=64 c=16, each verified and compared byte for byte
-    with the plain version on the whole arena; m=1 timed at each shape.
-    Returns the README m=1 rows by discipline."""
+    with the plain version on the whole arena, launched into a poisoned
+    recv; m=1 timed at each shape beside the bytes bound and the
+    wave-chain bound from the signal probe; the stamp split at the README
+    shape. Returns the README m=1 rows by discipline, each with its
+    larger shapes under ``large``."""
     import torch
 
     from tpu_aggcomm_torch.backends.cuda_dma import (CudaDmaBackend,
@@ -472,14 +559,16 @@ def phase_k3(dev) -> dict:
     from tpu_aggcomm_torch.core.pattern import AggregatorPattern
 
     cap = capacity()
-    print(f"K3: co-resident CTA cap {cap} (blocks per SM x SMs, 128 "
-          f"threads per CTA)", flush=True)
+    probe = signal_latency_us()
+    print(f"K3: co-resident CTA cap {cap} (blocks per SM x SMs); one-way "
+          f"signal latency {probe['us']:.4f} us (signal probe, SMs "
+          f"{probe['sms']}, {probe['iters']} round trips)", flush=True)
     n256, n1024 = dict(n=256, a=16, d=2048, c=16), dict(n=1024, a=64,
                                                         d=2048, c=16)
     cells = ([(m, README, 0) for m in FUSABLE] + [(13, README, 1)]
              + [(m, n256, 0) for m in (1, 18)] + [(1, n1024, 0)])
     # (kernel graph, kernel eager, plain graph, plain eager) calls per
-    # timing, by rank count: the lockstep n=1024 program takes ~15 ms
+    # timing, by rank count: the lockstep n=1024 program takes ~13 ms
     iters = {32: (50, 200, 3, 5), 256: (20, 50, 1, 3), 1024: (2, 5, 1, 2)}
     rows = {}
     for conc in (False, True):
@@ -494,12 +583,14 @@ def phase_k3(dev) -> dict:
             build_s = time.perf_counter() - t0
             backend.run(s, verify=True)
             send = send_arena(s.pattern, 0, dev)
-            got, plain = dma_steps(send, tabs), dma_steps_plain(send, tabs)
+            plain = dma_steps_plain(send, tabs)
+            got = dma_steps(send, tabs, out=torch.full_like(plain, 0xA5))
             err = max_abs_err(got, plain)
             check(err == 0 and torch.equal(got, plain),
                   f"K3 {backend.name} m={m} -b {bt} {cfg}: kernel != plain")
-            del got, plain
+            del got
             if m != 1:
+                del plain
                 continue
             kg, ke, pg, pe = iters[n]
             row = dict(shape=[n, cfg["a"], d, cfg["c"]],
@@ -510,36 +601,71 @@ def phase_k3(dev) -> dict:
                                  lambda: dma_steps_plain(send, tabs),
                                  kg, pg, ke, pe, warmup=min(20, ke)))
             check_protocol(tabs)
+            label = f"{backend.name} m=1 n={n}"
+            k3_graph_check(send, tabs, plain, label)
             recv_bytes = n * tabs.n_recv_rows * d
-            # least bytes of the function: send arena and the three step
-            # tables plus wave ends read once, recv arena written once
-            min_bytes = (send.numel() + 3 * 4 * n * tabs.n_steps
-                         + 4 * tabs.n_waves + recv_bytes)
+            # least bytes of the function: the send rows real steps read
+            # (a dummy step only signals, so no dummy row is read), the
+            # three step tables, wave ends and zero runs read once, the
+            # recv arena written once
+            real = tabs.sslot != tabs.n_send_rows - 1
+            ranks = torch.arange(n, device=dev)[:, None].expand_as(real)
+            read_rows = torch.unique(
+                ranks[real].long() * tabs.n_send_rows
+                + tabs.sslot[real].long()).numel()
+            min_bytes = (read_rows * d + 3 * 4 * n * tabs.n_steps
+                         + 4 * tabs.n_waves + 4 * (2 * len(tabs.zero_runs)
+                                                   + 1) + recv_bytes)
             edges = len(s.data_edges())
+            bytes_ms = min_bytes / HBM_BYTES_PER_S * 1e3
+            # the waves are a dependent chain: each ends no sooner than
+            # one cross-SM signal after the wave before it
+            chain_ms = tabs.n_waves * probe["us"] / 1e3
             row.update(
                 us_per_wave=row["ms"] * 1e3 / tabs.n_waves,
-                bound_ms=min_bytes / HBM_BYTES_PER_S * 1e3,
-                step_bound_ms=(2 * n * tabs.n_steps * d + recv_bytes)
-                / HBM_BYTES_PER_S * 1e3,
+                bound_ms=max(bytes_ms, chain_ms),
+                bound_by="latency" if chain_ms > bytes_ms else "bytes",
+                bytes_bound_ms=bytes_ms, chain_bound_ms=chain_ms,
+                zero_rows=tabs.zero_rows,
                 payload_bound_ms=2 * edges * d / HBM_BYTES_PER_S * 1e3)
-            print(f"K3 {backend.name} m=1 n={n} a={cfg['a']} c={cfg['c']}: "
+            split = ""
+            if n == README["n"]:
+                row["split"] = k3_stamp_split(send, tabs, row["ms"])
+                sp = row["split"]
+                split = (f"; split (rank 0's stamps): launch "
+                         f"{sp['launch_us']:.3f} us, zeroing "
+                         f"{sp['zero_us']:.3f} us, posts "
+                         f"{sp['post_us']:.3f} us "
+                         f"({sp['us_per_wave_post']:.3f} a wave), waits "
+                         f"{sp['wait_us']:.3f} us "
+                         f"({sp['us_per_wave_wait']:.3f} a wave)")
+            print(f"K3 {label} a={cfg['a']} c={cfg['c']}: "
                   f"{tabs.n_steps} steps, {tabs.n_waves} waves, tables "
-                  f"built in {build_s:.3f} s; zeroing + kernel "
-                  f"{row['ms'] * 1e3:.3f} us device (CUDA graph), "
-                  f"{row['eager_ms'] * 1e3:.3f} us eager (events), "
-                  f"{row['us_per_wave']:.3f} us/wave; plain "
+                  f"built in {build_s:.3f} s; one launch "
+                  f"{row['ms'] * 1e3:.3f} us device (CUDA graph, replays "
+                  f"== plain), {row['eager_ms'] * 1e3:.3f} us eager "
+                  f"(events), {row['us_per_wave']:.3f} us/wave; plain "
                   f"{row['plain_ms'] * 1e3:.3f} us device, "
                   f"{row['plain_eager_ms'] * 1e3:.3f} us eager; bound "
-                  f"{row['bound_ms'] * 1e3:.3f} us ({min_bytes} B read "
-                  f"once + written once), step-program bound "
-                  f"{row['step_bound_ms'] * 1e3:.3f} us, payload bound "
-                  f"{row['payload_bound_ms'] * 1e3:.3f} us ({edges} edges)",
-                  flush=True)
+                  f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}): "
+                  f"bytes {bytes_ms * 1e3:.3f} us ({min_bytes} B read "
+                  f"once + written once; {read_rows} send rows read, "
+                  f"{tabs.zero_rows} rows zeroed), "
+                  f"wave chain {chain_ms * 1e3:.3f} us ({tabs.n_waves} x "
+                  f"{probe['us']:.4f} us); payload bound "
+                  f"{row['payload_bound_ms'] * 1e3:.3f} us ({edges} edges)"
+                  f"{split}", flush=True)
             rows[(n, conc)] = row
-            del send
+            del send, plain
         print(f"K3 {backend.name}: {len(cells)} cells verified and == "
-              f"plain", flush=True)
-    return {"lockstep": rows[(32, False)], "concurrent": rows[(32, True)]}
+              f"plain into a poisoned recv", flush=True)
+    keep = ("shape", "steps", "waves", "ms", "eager_ms", "plain_ms",
+            "plain_eager_ms", "us_per_wave", "bound_ms", "bound_by",
+            "bytes_bound_ms", "chain_bound_ms")
+    return {name: dict(rows[(32, conc)], signal_latency_us=probe["us"],
+                       large=[{k: rows[(n, conc)][k] for k in keep}
+                              for n in (256, 1024)])
+            for name, conc in (("lockstep", False), ("concurrent", True))}
 
 
 def run_cli(runs) -> None:
@@ -639,7 +765,8 @@ def main() -> int:
     counts = main_path["counts"]
     # no single PyTorch call computes any of these functions (a permuted
     # copy plus XOR; a round-fenced scatter of rows; a semaphore-
-    # synchronized step program), so library_ms is null
+    # synchronized step program), so library_ms is null; K1's and K2's
+    # bounds are bytes, K3's row says which of its two binds
     kernels = [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": counts[name],

@@ -8,7 +8,9 @@ the reference ``pallas_dma`` on the CPU.
   seeded random partial permutations.
 - Kernel: ``dma_steps_plain`` (what the wrapper runs for a CPU tensor)
   equals the Pallas K3 kernel in interpret mode on the 8-device CPU mesh
-  of ``tests/conftest.py``, the whole recv arena, trash row included.
+  of ``tests/conftest.py``, the whole recv arena, trash row included; the
+  kernel's own contract (dummy steps move no bytes, the never-written
+  rows are zeroed) equals ``dma_steps_plain`` for every stepped method.
 - Backend, CLI and named refusals.
 
 Tolerance is zero throughout: this is integer data movement.
@@ -130,6 +132,89 @@ def _pallas_arena(rs, concurrent, iter_):
                             sharding),
              *[jax.device_put(t, sharding) for t in tabs])
     return np.asarray(out).reshape(n, n_recv + 1, pds)[:, :, :d]
+
+
+def _kernel_contract(send, tabs):
+    """What K3 computes, in plain torch: a recv of any contents, its zero
+    runs zeroed, then only the real steps' rows copied, steps in order
+    (a dummy step only signals)."""
+    n, d = tabs.nprocs, send.shape[2]
+    recv = torch.full((n, tabs.n_recv_rows, d), 0xA5, dtype=torch.uint8)
+    flat = recv.view(-1, d)
+    for a, b in tabs.zero_runs:
+        flat[a:b] = 0
+    dummy = tabs.n_send_rows - 1
+    for st in range(tabs.n_steps):
+        ranks = torch.nonzero(tabs.sslot[:, st] != dummy).flatten()
+        ss = tabs.sslot[ranks, st].long()
+        recv[tabs.dst[ranks, st].long(), tabs.rslot[ranks, st].long()] = \
+            send[ranks, ss]
+    return recv
+
+
+# every stepped method at n = 8 and 32, with and without a barrier per rep
+INVARIANT_CASES = [(m, shape, bt) for shape in ((8, 3, 16, 3), (32, 14, 16, 3))
+                   for m in STEPPED for bt in (0, 1)]
+
+
+@pytest.mark.parametrize("concurrent", [False, True],
+                         ids=["lockstep", "concurrent"])
+@pytest.mark.parametrize("method,shape,barrier_type", INVARIANT_CASES)
+def test_dummy_steps_carry_no_bytes(method, shape, barrier_type,
+                                    concurrent):
+    """The invariant signal-only dummy steps rest on: a step whose send
+    slot is the dummy row targets the trash row, no real step writes the
+    trash row, and the plain version's trash row is zero. So the kernel's
+    contract (skip the dummy copies, zero the never-written rows) gives
+    the plain version's arena byte for byte, from any prior contents."""
+    _rs, s = _pair(method, shape, barrier_type)
+    low, (_dst, _src, sslot, rslot), _w, n_recv = cuda_dma.build_steps(
+        s, concurrent)
+    dummy = sslot == low.n_send_slots
+    assert (rslot[dummy] == n_recv).all()
+    assert not (rslot[~dummy] == n_recv).any()
+    tabs = cuda_dma.dma_tables(s, concurrent, "cpu")
+    send = cuda_dma.send_arena(s.pattern, 1, "cpu")
+    plain = cuda_dma.dma_steps_plain(send, tabs)
+    assert not plain[:, -1].any()
+    assert torch.equal(_kernel_contract(send, tabs), plain)
+
+
+def test_tables_lay_out_zero_runs_counters_and_base_words():
+    """The never-written rows are exactly the rows no real step writes
+    (608 of 1056 at the README shape, every trash row among them), in
+    run form; one counter per 128-byte line and one base word per rank,
+    all zero."""
+    _rs, s = _pair(1, README)
+    tabs = cuda_dma.dma_tables(s, False, "cpu")
+    n, rows = tabs.nprocs, tabs.n_recv_rows
+    assert cuda_dma.COUNTER_STRIDE * tabs.arrival.element_size() == 128
+    assert tabs.arrival.shape == (n * cuda_dma.COUNTER_STRIDE,)
+    assert tabs.base.shape == (n,)
+    assert not tabs.arrival.any() and not tabs.base.any()
+    real = tabs.sslot != tabs.n_send_rows - 1
+    written = set((tabs.dst.long() * rows
+                   + tabs.rslot.long())[real].tolist())
+    zeroed = [q for a, b in tabs.zero_runs for q in range(a, b)]
+    assert len(written) == 448
+    assert len(zeroed) == tabs.zero_rows == n * rows - 448 == 608
+    assert written.isdisjoint(zeroed)
+    assert written | set(zeroed) == set(range(n * rows))
+    assert {r * rows + rows - 1 for r in range(n)} <= set(zeroed)
+    assert tabs.zero_start.tolist() == [a for a, _b in tabs.zero_runs]
+    assert tabs.zero_ptr.tolist() == np.cumsum(
+        [0] + [b - a for a, b in tabs.zero_runs]).tolist()
+
+
+def test_counter_stride_is_the_kernels_constant():
+    """The kernel indexes the counters with its compile-time
+    ``kCounterStride``, so the layout :func:`make_tables` allocates must
+    use the same number; both source files are read here."""
+    from tpu_aggcomm_torch.csrc import build
+    src = (build.CSRC / "dma_steps.cu").read_text()
+    found = re.findall(r"constexpr long long kCounterStride = (\d+);", src)
+    assert found == [str(cuda_dma.COUNTER_STRIDE)]
+    assert "counter_stride" not in src
 
 
 @pytest.mark.parametrize("method,concurrent,d", [
@@ -256,13 +341,28 @@ def _corrupt(kind, tabs, waves):
         rslot[2, 0] = -1
     elif kind == "waves":
         waves = waves[:-1]
+    else:
+        dummy, trash = sslot.max(), rslot.max()   # both used by barriers
+        real = np.argwhere(sslot != dummy)
+        if kind == "dummy-row":
+            r, st = np.argwhere(sslot == dummy)[0]
+            rslot[r, st] = 0
+        elif kind == "real-trash":
+            r, st = real[0]
+            rslot[r, st] = trash
+        elif kind == "twice":          # two senders into one aggregator slot
+            (r0, s0), (r1, s1) = [(r, st) for r, st in real
+                                  if dst[r, st] == dst[tuple(real[0])]][:2]
+            rslot[r1, s1] = rslot[r0, s0]
     return (dst, src, sslot, rslot), waves
 
 
 @pytest.mark.parametrize("kind,needle", [
     ("dst", "not a permutation"), ("src", "inverse"),
     ("sslot", "send slot"), ("rslot", "recv slot"),
-    ("waves", "waves end")])
+    ("waves", "waves end"), ("dummy-row", "dummy step"),
+    ("real-trash", "real step writes the trash row"),
+    ("twice", "written by two real steps")])
 def test_malformed_step_table_is_refused_on_the_host(kind, needle):
     _rs, s = _pair(1, SMALL)
     low, tabs, waves, n_recv = cuda_dma.build_steps(s)
@@ -292,6 +392,38 @@ def test_dma_steps_wrapper_checks_its_inputs():
     with pytest.raises(ValueError, match="contiguous"):
         cuda_dma.dma_steps(torch.zeros((8, 16, 4), dtype=torch.uint8)
                            .transpose(1, 2), tabs)
+    send = cuda_dma.send_arena(s.pattern, 0, "cpu")
+    with pytest.raises(ValueError, match="out must be"):
+        cuda_dma.dma_steps(send, tabs, out=torch.zeros((8, 8, 256),
+                                                       dtype=torch.uint8))
+    with pytest.raises(ValueError, match="stamps must be"):
+        cuda_dma.dma_steps(send, tabs, stamps=torch.zeros(
+            (tabs.n_waves, 3), dtype=torch.int64))
+
+
+def test_dma_steps_overwrites_every_row_of_out():
+    _rs, s = _pair(1, SMALL)
+    tabs = cuda_dma.dma_tables(s, True, "cpu")
+    send = cuda_dma.send_arena(s.pattern, 2, "cpu")
+    out = torch.full((8, tabs.n_recv_rows, 256), 0xA5, dtype=torch.uint8)
+    got = cuda_dma.dma_steps(send, tabs, out=out)
+    assert got is out
+    assert torch.equal(out, cuda_dma.dma_steps_plain(send, tabs))
+
+
+def test_protocol_timeout_record_raises_by_name_and_stays():
+    """A timed-out CTA's record (rank + 1, step, arrivals) becomes
+    ``DmaProtocolError`` naming them, and stays: the tables are refused
+    from then on."""
+    _rs, s = _pair(1, SMALL)
+    tabs = cuda_dma.dma_tables(s, False, "cpu")
+    cuda_dma.check_protocol(tabs)
+    tabs.error[:] = torch.tensor([3, 7, 40], dtype=torch.int32)
+    for _ in range(2):
+        with pytest.raises(cuda_dma.DmaProtocolError,
+                           match="rank 2 .* in one wait .* up to step 7 "
+                                 "\\(had 40\\)"):
+            cuda_dma.check_protocol(tabs)
 
 
 # ---------------------------------------------------------------------------

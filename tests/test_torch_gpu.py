@@ -11,14 +11,19 @@ reference package, so on a host with the card and without jax it runs as
 Tolerance is zero throughout: the kernels move integer data.
 """
 
+import dataclasses
+import time
+
 import numpy as np
 import pytest
 import torch
 
-from tpu_aggcomm_torch.backends import cuda_local
-from tpu_aggcomm_torch.backends.cuda_dma import (CudaDmaBackend, capacity,
-                                                 dma_steps, dma_steps_plain,
-                                                 dma_tables, send_arena)
+from tpu_aggcomm_torch.backends import cuda_dma, cuda_local
+from tpu_aggcomm_torch.backends.cuda_dma import (CudaDmaBackend,
+                                                 DmaProtocolError, capacity,
+                                                 check_protocol, dma_steps,
+                                                 dma_steps_plain, dma_tables,
+                                                 send_arena)
 from tpu_aggcomm_torch.backends.cuda_fused import CudaFusedBackend
 from tpu_aggcomm_torch.backends.cuda_local import (exchange, exchange_chain,
                                                    exchange_plain,
@@ -230,3 +235,142 @@ def test_dma_backends_verify_on_the_card(cuda, concurrent):
 
 def test_dma_capacity_holds_1024_ranks(cuda):
     assert capacity() >= 1024
+
+
+def test_dma_runs_ten_rank_ctas_per_sm(cuda):
+    """The kernel's launch bounds keep ten rank CTAs co-resident per SM
+    (1320 on an H100's 132 SMs), and a program of exactly the cap's ranks
+    runs and equals plain."""
+    cap = capacity()
+    assert cap >= 10 * torch.cuda.get_device_properties(
+        cuda).multi_processor_count
+    s = compile_method(1, AggregatorPattern(cap, 4, data_size=64,
+                                            comm_size=4))
+    tabs = dma_tables(s, True, cuda)
+    send = send_arena(s.pattern, 1, cuda)
+    assert torch.equal(dma_steps(send, tabs), dma_steps_plain(send, tabs))
+
+
+def _readme_dma(cuda, concurrent, d=2048):
+    s = compile_method(1, AggregatorPattern(32, 14, data_size=d,
+                                            comm_size=3))
+    tabs = dma_tables(s, concurrent, cuda)
+    send = send_arena(s.pattern, 1, cuda)
+    return tabs, send, dma_steps_plain(send, tabs)
+
+
+@pytest.mark.parametrize("d", [2048, 36, 30])
+@pytest.mark.parametrize("concurrent", [False, True],
+                         ids=["lockstep", "concurrent"])
+@pytest.mark.parametrize("method", FUSABLE)
+def test_dma_kernel_zeroes_a_poisoned_recv(cuda, method, concurrent, d):
+    """Into a recv pre-filled with 0xA5, K3 equals plain on every byte,
+    trash row included: the zeroing inside the launch covers every row no
+    real step writes."""
+    s = compile_method(method, AggregatorPattern(32, 14, data_size=d,
+                                                 comm_size=3))
+    tabs = dma_tables(s, concurrent, cuda)
+    send = send_arena(s.pattern, 1, cuda)
+    got = dma_steps(send, tabs, out=_poisoned(tabs, send))
+    assert torch.equal(got, dma_steps_plain(send, tabs))
+
+
+@pytest.mark.parametrize("concurrent", [False, True],
+                         ids=["lockstep", "concurrent"])
+def test_dma_back_to_back_launches_never_reset_the_counters(cuda,
+                                                            concurrent):
+    """Three launches on one DmaTables, nothing zeroed between them: each
+    equals plain, and every rank's base word has advanced by three
+    programs' steps to equal its counter."""
+    tabs, send, plain = _readme_dma(cuda, concurrent)
+    before = dma_steps.launches
+    outs = [dma_steps(send, tabs, out=_poisoned(tabs, send), check=False)
+            for _ in range(3)]
+    check_protocol(tabs)
+    assert dma_steps.launches == before + 3
+    for got in outs:
+        assert torch.equal(got, plain)
+    stride = tabs.arrival.numel() // tabs.nprocs
+    assert (tabs.base == 3 * tabs.n_steps).all()
+    assert torch.equal(tabs.arrival[::stride], tabs.base)
+
+
+@pytest.mark.parametrize("concurrent", [False, True],
+                         ids=["lockstep", "concurrent"])
+def test_dma_graph_replay_reads_the_base_on_the_device(cuda, concurrent):
+    """A CUDA graph of two launches, replayed three times into a poisoned
+    recv, equals plain each time: the graph froze the launch arguments,
+    so the waits must count from base words read on the device."""
+    tabs, send, plain = _readme_dma(cuda, concurrent)
+    out = _poisoned(tabs, send)
+    dma_steps(send, tabs, out=out)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(2):
+            dma_steps(send, tabs, out=out, check=False)
+    for _ in range(3):
+        out.fill_(0xA5)
+        graph.replay()
+        torch.cuda.synchronize()
+        check_protocol(tabs)
+        assert torch.equal(out, plain)
+    assert (tabs.base == 7 * tabs.n_steps).all()
+
+
+def test_dma_long_lockstep_program_outlasts_a_short_timeout(cuda,
+                                                            monkeypatch):
+    """The timeout bounds each wait, not the program: the n=1024 lockstep
+    program (8202 waves) runs longer than a 5 ms timeout and completes."""
+    monkeypatch.setattr(cuda_dma, "TIMEOUT_S", 0.005)
+    s = compile_method(1, AggregatorPattern(1024, 64, data_size=2048,
+                                            comm_size=16))
+    tabs = dma_tables(s, False, cuda)
+    send = send_arena(s.pattern, 0, cuda)
+    dma_steps(send, tabs)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    got = dma_steps(send, tabs, check=False)
+    stop.record()
+    stop.synchronize()
+    check_protocol(tabs)
+    assert start.elapsed_time(stop) > 5.0
+    assert torch.equal(got, dma_steps_plain(send, tabs))
+
+
+def test_dma_malformed_program_raises_quickly_and_stays_refused(
+        cuda, monkeypatch):
+    """Two ranks push to one rank at the last step, so another rank never
+    gets its last arrival: its wait times out, DmaProtocolError names it,
+    and a later launch on those tables is refused too."""
+    monkeypatch.setattr(cuda_dma, "TIMEOUT_S", 0.05)
+    tabs, send, _plain = _readme_dma(cuda, False)
+    dst = tabs.dst.clone()
+    starved = int(dst[0, -1])
+    dst[0, -1] = dst[1, -1]
+    bad = dataclasses.replace(tabs, dst=dst)
+    t0 = time.perf_counter()
+    with pytest.raises(DmaProtocolError,
+                       match=f"rank {starved} .* up to step "
+                             f"{tabs.n_steps - 1} "):
+        dma_steps(send, bad)
+    assert time.perf_counter() - t0 < 5.0
+    with pytest.raises(DmaProtocolError, match=f"rank {starved} "):
+        dma_steps(send, bad)
+
+
+@pytest.mark.parametrize("concurrent", [False, True],
+                         ids=["lockstep", "concurrent"])
+def test_dma_stamps_order_every_wave(cuda, concurrent):
+    """Rank 0's stamps: start <= zeroing done <= each wave's post start <=
+    its signals <= its wait end <= the next wave's post start <= exit."""
+    tabs, send, plain = _readme_dma(cuda, concurrent)
+    stamps = torch.zeros((tabs.n_waves + 1, 3), dtype=torch.int64,
+                         device=cuda)
+    assert torch.equal(dma_steps(send, tabs, stamps=stamps), plain)
+    st = stamps.cpu()
+    assert (st > 0).all()
+    waves = st[1:].flatten()
+    assert st[0, 0] <= st[0, 1] <= waves[0]
+    assert (waves[1:] >= waves[:-1]).all()
+    assert waves[-1] <= st[0, 2]

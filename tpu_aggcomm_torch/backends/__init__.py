@@ -6,7 +6,8 @@
   (``csrc/fused_rep.cu``), recv zeroing inside, a fence per round.
 - ``cuda_dma`` / ``cuda_dma_conc`` — the remote-DMA semaphore transport
   (``csrc/dma_steps.cu``): one co-resident CTA per rank runs the
-  permutation-step program, lockstep or a whole round in flight.
+  permutation-step program, lockstep or a whole round in flight, one
+  launch per rep, recv zeroing inside.
 
 ``cuda_local`` holds the headline exchange kernel (``csrc/exchange.cu``,
 a whole chain of reps in one launch) that the bench drives.

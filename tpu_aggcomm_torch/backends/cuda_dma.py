@@ -11,29 +11,31 @@ round posted, then drained, ``cuda_dma_conc``). In two halves:
   :func:`complete_permutation` (``pallas_dma.py:70-100``; the latter
   rewritten with boolean masks in O(n), output pinned equal by the tests),
   and :func:`build_steps` / :func:`wave_profile` (``:235-360``): the
-  uniform permutation-step program. Each step every rank copies one row to
+  uniform permutation-step program. Each step every rank sends one row to
   one other rank's recv slot, each step's ``dst`` column is a full
-  permutation (idle ranks copy the zero dummy row into their own trash
-  row), and the steps are grouped into waves whose copies are all posted
-  before any wait.
+  permutation (idle ranks name the zero dummy row and a trash row: on the
+  TPU they copy it, on the card such a step only signals), and the steps
+  are grouped into waves whose copies are all posted before any wait.
 - **kernel half (ported)** — kernel K3 (``csrc/dma_steps.cu``) replaces
   ``PallasDmaBackend._lower``'s Pallas kernel (``:378-446``, the call at
   ``:420``). On the TPU each rank was a device and a step a remote DMA
   with send and recv semaphores; on one H100 each rank is one CTA of a
   cooperative launch (for the co-residency guarantee: the CTAs spin on
-  each other), a step is a CTA-wide row copy followed by a release
-  increment of the receiver's arrival counter, and a wave ends with an
-  acquire spin until the rank's own counter reaches the wave's cumulative
-  step count. The wrapper :func:`dma_steps` zeroes the recv arena and the
-  counters in the stream, takes the plain version
-  (:func:`dma_steps_plain`, a Python loop of one index copy per step) for a
-  CPU tensor, launches the kernel for a CUDA tensor and counts launches in
-  ``dma_steps.launches``.
+  each other). A wave posts its real row copies, then one release
+  increment of the receiver's arrival counter per step (a dummy step only
+  signals), and ends with an acquire spin until the rank's own counter
+  has moved the wave's cumulative step count past the rank's base word.
+  One launch is one rep: the recv rows no real step writes are zeroed
+  inside it, and the counters are never reset (each rank's base word
+  advances by NS a launch, on the device). The wrapper :func:`dma_steps`
+  takes the plain version (:func:`dma_steps_plain`, a Python loop of one
+  index copy per step) for a CPU tensor, launches the kernel for a CUDA
+  tensor and counts launches in ``dma_steps.launches``.
 
 What bounds K3 on an H100 is the dependent wave chain — one cross-SM
-release/acquire round trip through L2 per wave, NS of them in lockstep —
-and, second, the bytes of the step program (every row of the step table,
-dummy rows included, read and written once, plus the zeroing). The
+release/acquire signal per wave, NS of them in lockstep — and, second,
+the bytes (the real rows read and written once, the rest of the recv
+arena zeroed). The
 Mosaic padding of the TPU kernel (``pds = _pad128(d)``, rows shaped
 ``(4, pds/4)``) is not carried over: arenas are ``(n, S+1, d)`` and
 ``(n, R+1, d)`` uint8, dummy send row and trash recv row last.
@@ -64,6 +66,7 @@ from tpu_aggcomm_torch.device import resolve_device, sync
 from tpu_aggcomm_torch.harness.attribution import attribute_total, weights_for
 from tpu_aggcomm_torch.harness.timer import Timer
 from tpu_aggcomm_torch.harness.verify import recv_slot_counts, verify_recv
+from tpu_aggcomm_torch.native.fuse import zero_runs_of
 
 __all__ = ["CudaDmaBackend", "DmaTables", "DmaCapacityError",
            "DmaProtocolError", "DmaTableError", "barrier_shifts",
@@ -72,10 +75,14 @@ __all__ = ["CudaDmaBackend", "DmaTables", "DmaCapacityError",
            "check_capacity", "check_protocol", "send_arena", "dma_steps",
            "dma_steps_plain", "TIMEOUT_S"]
 
-#: how long the kernel's CTAs spin in all before they give up and report
-#: the step they were waiting for (a malformed program must not hang the
-#: card); a healthy n=1024 lockstep run takes milliseconds
+#: how long one wait of a CTA may spin before it gives up and reports the
+#: step it was waiting for (a malformed program must not hang the card);
+#: the clock starts at each wait's first check, so a healthy program of
+#: any length completes
 TIMEOUT_S = 10.0
+#: uint32 words between two ranks' arrival counters: one counter per
+#: 128-byte line; ``kCounterStride`` in ``csrc/dma_steps.cu`` is the same
+COUNTER_STRIDE = 32
 
 
 class DmaCapacityError(RuntimeError):
@@ -267,9 +274,16 @@ class DmaTables:
     """A step program as K3 reads it, all on one device: the (n, NS)
     int32 tables ``dst, src, sslot, rslot`` (row r is rank r's program),
     the cumulative wave ends ``wave_end`` (n_waves,) int32, the arena
-    geometry, and the kernel's scratch: one arrival counter per rank
-    (zeroed in the stream before every launch) and the error word
-    ``(rank + 1, step, arrivals)`` a timed-out CTA writes (sticky)."""
+    geometry, the recv rows no real step writes (the trash rows among
+    them) as runs of contiguous flat rows ``dst * n_recv_rows + rslot``
+    (``zero_runs`` the host ``(start, stop)`` pairs, ``zero_start`` /
+    ``zero_ptr`` their device form: run starts, prefix row counts), and
+    the kernel's scratch: the ranks' arrival counters,
+    :data:`COUNTER_STRIDE` words apart (the kernel's ``kCounterStride``),
+    and their base words ``base[r]`` (the counter when rank
+    r's CTA last exited), both zero when made and never reset,
+    and the error word ``(rank + 1, step, arrivals)`` a timed-out CTA
+    writes (sticky)."""
 
     nprocs: int
     n_send_rows: int            # send slots + the zero dummy row
@@ -280,7 +294,12 @@ class DmaTables:
     sslot: torch.Tensor
     rslot: torch.Tensor
     wave_end: torch.Tensor
+    zero_runs: tuple
+    zero_rows: int
+    zero_start: torch.Tensor
+    zero_ptr: torch.Tensor
     arrival: torch.Tensor
+    base: torch.Tensor
     error: torch.Tensor
 
     @property
@@ -298,8 +317,12 @@ class DmaTables:
 
 def check_step_tables(tabs, waves, n_send_rows: int, n_recv_rows: int
                       ) -> None:
-    """Refuse, on the host, a step program the kernel could deadlock on
-    or write out of bounds with (:class:`DmaTableError`)."""
+    """Refuse, on the host, a step program the kernel could deadlock on,
+    write out of bounds with, or compute differently from
+    :func:`dma_steps_plain` (:class:`DmaTableError`). The kernel moves no
+    bytes for a dummy step and orders no two writes of one row, so a
+    dummy step must target the trash row, a real step must not, and no
+    row may be written by two real steps."""
     dst, src, sslot, rslot = (np.asarray(t) for t in tabs)
     n = dst.shape[0]
     if dst.ndim != 2 or any(t.shape != dst.shape for t in (src, sslot,
@@ -317,6 +340,15 @@ def check_step_tables(tabs, waves, n_send_rows: int, n_recv_rows: int
         raise DmaTableError(f"a send slot lies outside [0, {n_send_rows})")
     if not ((rslot >= 0) & (rslot < n_recv_rows)).all():
         raise DmaTableError(f"a recv slot lies outside [0, {n_recv_rows})")
+    dummy = sslot == n_send_rows - 1
+    if (rslot[dummy] != n_recv_rows - 1).any():
+        raise DmaTableError("a dummy step (send slot = the dummy row) "
+                            "targets a recv row other than the trash row")
+    if (rslot[~dummy] == n_recv_rows - 1).any():
+        raise DmaTableError("a real step writes the trash row")
+    rows = (dst.astype(np.int64) * n_recv_rows + rslot)[~dummy]
+    if len(np.unique(rows)) != len(rows):
+        raise DmaTableError("a recv row is written by two real steps")
     ends = [0]
     for s0, s1 in waves:
         if s0 != ends[-1] or s1 <= s0:
@@ -331,18 +363,30 @@ def check_step_tables(tabs, waves, n_send_rows: int, n_recv_rows: int
 def make_tables(tabs, waves, n_send_rows: int, n_recv_rows: int,
                 device) -> DmaTables:
     """Check host step tables (:func:`check_step_tables`) and put them on
-    ``device`` with the kernel's scratch."""
+    ``device`` with their zero runs and the kernel's scratch."""
     check_step_tables(tabs, waves, n_send_rows, n_recv_rows)
-    dst, src, sslot, rslot = (
-        torch.as_tensor(np.ascontiguousarray(t, dtype=np.int32),
-                        device=device) for t in tabs)
+    n = int(np.asarray(tabs[0]).shape[0])
+    real = np.asarray(tabs[2]) != n_send_rows - 1
+    runs = zero_runs_of(n, n_recv_rows, np.asarray(tabs[0])[real],
+                        np.asarray(tabs[3])[real])
+    lens = [b - a for a, b in runs]
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
+                               device=device)
+
+    dst, src, sslot, rslot = (t(a) for a in tabs)
     return DmaTables(
-        nprocs=int(dst.shape[0]), n_send_rows=n_send_rows,
+        nprocs=n, n_send_rows=n_send_rows,
         n_recv_rows=n_recv_rows, waves=tuple(waves),
         dst=dst, src=src, sslot=sslot, rslot=rslot,
-        wave_end=torch.tensor([s1 for _s0, s1 in waves], dtype=torch.int32,
-                              device=device),
-        arrival=torch.zeros(dst.shape[0], dtype=torch.int32, device=device),
+        wave_end=t([s1 for _s0, s1 in waves]),
+        zero_runs=tuple(runs), zero_rows=sum(lens),
+        zero_start=t([a for a, _b in runs]),
+        zero_ptr=t(np.concatenate([[0], np.cumsum(lens)])),
+        arrival=torch.zeros(n * COUNTER_STRIDE, dtype=torch.int32,
+                            device=device),
+        base=torch.zeros(n, dtype=torch.int32, device=device),
         error=torch.zeros(3, dtype=torch.int32, device=device))
 
 
@@ -398,9 +442,10 @@ def _c_lib():
     cap = lib.aggcomm_dma_capacity
     cap.argtypes = [i, ctypes.POINTER(i)]
     cap.restype = i
+    ll = ctypes.c_longlong
     fn = lib.aggcomm_dma_steps
-    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ctypes.c_longlong, p, p,
-                   ctypes.c_ulonglong, p, i]
+    fn.argtypes = [p, p, p, p, p, p, p, p, i, ll, i, i, i, i, i, ll, p, p, p,
+                   ctypes.c_ulonglong, p, p, i]
     fn.restype = i
     return cap, fn
 
@@ -425,24 +470,33 @@ def capacity(device=None) -> int:
 
 def check_protocol(tabs: DmaTables) -> None:
     """Wait for the device and raise :class:`DmaProtocolError` if a CTA of
-    an earlier launch on these tables timed out."""
+    an earlier launch on these tables timed out. The record is sticky: a
+    launch on tables that timed out returns at once without posting, so
+    they stay refused."""
     rank1, step, got = tabs.error.tolist()
     if rank1:
         raise DmaProtocolError(
-            f"dma_steps: rank {rank1 - 1} waited over {TIMEOUT_S} s for the "
-            f"arrivals up to step {step} (had {got}); the step program did "
-            f"not complete")
+            f"dma_steps: rank {rank1 - 1} waited over {TIMEOUT_S} s in one "
+            f"wait for the arrivals up to step {step} (had {got}); the step "
+            f"program did not complete")
 
 
-def dma_steps(send: torch.Tensor, tabs: DmaTables, *,
-              check: bool = True) -> torch.Tensor:
+def dma_steps(send: torch.Tensor, tabs: DmaTables,
+              out: torch.Tensor | None = None, *, check: bool = True,
+              stamps: torch.Tensor | None = None) -> torch.Tensor:
     """One rep of the step program: recv (n, R+1, d) uint8, trash row
-    last. CPU tensors take :func:`dma_steps_plain`. On the card: recv
-    zeroing, counter zeroing and one cooperative launch on the current
-    stream; with ``check`` the wrapper then waits for the device and
-    raises :class:`DmaProtocolError` on a timeout (pass ``check=False``
-    to keep the call asynchronous, for timing or graph capture, and call
-    :func:`check_protocol` after)."""
+    last and zero, into ``out`` when given (any contents: every row is
+    overwritten). ``send``'s last row per rank is the dummy row and must
+    be zero, as :func:`send_arena` makes it. CPU tensors take
+    :func:`dma_steps_plain`. On the card: ONE cooperative launch on the
+    current stream, the recv zeroing and the counters' bookkeeping inside
+    it; with ``check`` the wrapper then waits for the device and raises
+    :class:`DmaProtocolError` on a timeout (pass ``check=False`` to keep
+    the call asynchronous, for timing or graph capture, and call
+    :func:`check_protocol` after). ``stamps`` (int64 ``(n_waves + 1,
+    3)``, diagnostic calls only) receives rank 0's %globaltimer stamps:
+    row 0 (start, zeroing done, exit), then per wave (post start, signals
+    issued, wait end)."""
     n = tabs.nprocs
     if (send.dim() != 3 or send.dtype != torch.uint8
             or tuple(send.shape[:2]) != (n, tabs.n_send_rows)
@@ -455,22 +509,38 @@ def dma_steps(send: torch.Tensor, tabs: DmaTables, *,
     if send.device != tabs.device:
         raise ValueError(f"dma_steps: send on {send.device}, step tables on "
                          f"{tabs.device}")
+    shape = (n, tabs.n_recv_rows, send.shape[2])
+    if out is not None and (tuple(out.shape) != shape
+                            or out.dtype != torch.uint8
+                            or out.device != send.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"dma_steps: out must be a contiguous {shape} "
+                         f"uint8 tensor on {send.device}")
+    if stamps is not None and (
+            tuple(stamps.shape) != (tabs.n_waves + 1, 3)
+            or stamps.dtype != torch.int64 or stamps.device != send.device
+            or not stamps.is_contiguous()):
+        raise ValueError(f"dma_steps: stamps must be a contiguous "
+                         f"({tabs.n_waves + 1}, 3) int64 tensor on "
+                         f"{send.device}")
     if send.device.type == "cpu":
-        return dma_steps_plain(send, tabs)
+        recv = dma_steps_plain(send, tabs)
+        return recv if out is None else out.copy_(recv)
     dev = send.device.index if send.device.index is not None \
         else torch.cuda.current_device()
     check_capacity(n, _capacity(dev))
-    recv = torch.zeros((n, tabs.n_recv_rows, send.shape[2]),
-                       dtype=torch.uint8, device=send.device)
-    tabs.arrival.zero_()
+    recv = torch.empty(shape, dtype=torch.uint8, device=send.device) \
+        if out is None else out
     rc = _c_lib()[1](
         send.data_ptr(), recv.data_ptr(), tabs.dst.data_ptr(),
         tabs.sslot.data_ptr(), tabs.rslot.data_ptr(),
-        tabs.wave_end.data_ptr(), n, tabs.n_waves, tabs.n_steps,
-        tabs.n_send_rows, tabs.n_recv_rows, send.shape[2],
-        tabs.arrival.data_ptr(), tabs.error.data_ptr(),
-        int(TIMEOUT_S * 1e9), torch.cuda.current_stream(dev).cuda_stream,
-        dev)
+        tabs.wave_end.data_ptr(), tabs.zero_start.data_ptr(),
+        tabs.zero_ptr.data_ptr(), len(tabs.zero_runs), tabs.zero_rows, n,
+        tabs.n_waves, tabs.n_steps, tabs.n_send_rows, tabs.n_recv_rows,
+        send.shape[2], tabs.arrival.data_ptr(), tabs.base.data_ptr(),
+        tabs.error.data_ptr(), int(TIMEOUT_S * 1e9),
+        None if stamps is None else stamps.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream, dev)
     if rc != 0:
         raise RuntimeError(f"dma_steps kernel launch failed: cudaError {rc}")
     dma_steps.launches += 1
@@ -496,8 +566,8 @@ class CudaDmaBackend:
     dissemination-barrier steps stay lockstep in both.
 
     Timing follows the reference: one untimed warm-up launch, then each
-    rep is the host clock around recv zeroing, counter zeroing, the
-    launch and the synchronize, spread onto the timer buckets by
+    rep is the host clock around the one launch (recv zeroing inside it)
+    and the synchronize, spread onto the timer buckets by
     ``attribute_total`` (provenance ``(name, "attributed")``). Without a
     card and unless ``device="cpu"`` is asked for, construction raises
     ``NoCudaDeviceError``; on the CPU the plain version runs.

@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC.parents[1] / "build" / "torch_kernels"
 
 #: the kernel sources in this directory, one object each
-SOURCES = ("exchange.cu", "fused_rep.cu", "dma_steps.cu")
+SOURCES = ("exchange.cu", "fused_rep.cu", "dma_steps.cu", "signal_probe.cu")
 #: headers the sources include; part of the library's hash
 HEADERS = ("sync.cuh",)
 
@@ -123,4 +123,4 @@ def ptxas_report() -> list[str]:
     if not path.exists():
         return []
     return [ln.strip() for ln in path.read_text().splitlines()
-            if "ptxas info" in ln]
+            if "ptxas info" in ln or "spill" in ln]

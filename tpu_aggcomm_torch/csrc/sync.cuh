@@ -1,16 +1,20 @@
 // Device-side synchronisation primitives shared by the port's kernels.
 //
-// A grid-wide barrier between CTAs that are all co-resident (the launch
-// is cooperative, or the grid is one thread-block cluster), built from
-// one monotone 32-bit arrival counter: a CTA arrives with a release
-// increment and waits with an acquire spin until the counter reaches
-// `target`. The counter is zeroed in the stream before the launch, so
-// barrier b of a launch waits for (b + 1) * gridDim arrivals. Each wait
-// is bounded by %globaltimer: a CTA that has spun past `timeout_ns` in one
-// wait records (cta + 1, tag, count) in the error word and gives up, and
-// every other spinning CTA that sees the word set gives up too, so a CTA
-// that never arrives cannot wedge the card. The wrapper reads the word
-// after its sync and raises.
+// wait_count: one thread spins with an acquire load on a monotone 32-bit
+// counter until it has moved `target` past `base` (unsigned modular
+// arithmetic, so a counter that wraps around is harmless). Each wait is
+// bounded by %globaltimer from its own first check: a thread that has
+// spun past `timeout` in one wait records (who + 1, tag, count - base) in
+// the error word and gives up, and every other spinning thread that sees
+// the word set gives up too, so a party that never signals cannot wedge
+// the card. The wrapper reads the word after its sync and raises.
+//
+// grid_arrive_wait: a grid-wide barrier between CTAs that are all
+// co-resident (the launch is cooperative, or the grid is one thread-block
+// cluster), built from one such counter: a CTA arrives with a release
+// increment and waits until the counter reaches `target`. The counter is
+// zeroed in the stream before the launch, so barrier b of a launch waits
+// for (b + 1) * gridDim arrivals.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -40,6 +44,33 @@ __device__ __forceinline__ void red_release_add(unsigned* p, unsigned v) {
                : "memory");
 }
 
+// One thread calls this. Returns true when the wait failed (this thread
+// timed out, or the error word was already set). The clock starts at the
+// wait's first check (after 1024 spins), so a wait that ends sooner reads
+// no timer.
+__device__ __forceinline__ bool wait_count(const unsigned* counter,
+                                           unsigned base, unsigned target,
+                                           int* error, int who, int tag,
+                                           unsigned long long timeout) {
+  unsigned got;
+  unsigned spins = 0;
+  unsigned long long start = 0;
+  while ((got = load_acquire(counter)) - base < target) {
+    if ((++spins & 1023u) != 0) continue;
+    if (*reinterpret_cast<volatile int*>(error) != 0) return true;
+    const unsigned long long now = global_ns();
+    if (start == 0) start = now;
+    if (now - start > timeout) {
+      if (atomicCAS(error, 0, who + 1) == 0) {
+        error[1] = tag;
+        error[2] = (int)(got - base);
+      }
+      return true;
+    }
+  }
+  return false;
+}
+
 // The layout of a barrier's scratch: word 0 the arrival counter, words
 // 1-3 the error record (cta + 1, tag, arrivals seen), zero unless a spin
 // timed out.
@@ -49,9 +80,7 @@ struct BarrierWords {
 };
 
 // Every thread of every CTA calls this. Returns true when the barrier
-// failed (this CTA or another timed out); the caller then returns. The
-// clock starts at the wait's first check (after 1024 spins), so a wait
-// that ends sooner reads no timer.
+// failed (this CTA or another timed out); the caller then returns.
 __device__ __forceinline__ bool grid_arrive_wait(BarrierWords w,
                                                  unsigned target, int tag,
                                                  unsigned long long timeout) {
@@ -59,26 +88,8 @@ __device__ __forceinline__ bool grid_arrive_wait(BarrierWords w,
   int failed = 0;
   if (threadIdx.x == 0) {
     red_release_add(w.counter, 1u);  // cumulative: covers the CTA's writes
-    unsigned got;
-    unsigned spins = 0;
-    unsigned long long start = 0;
-    while ((got = load_acquire(w.counter)) < target) {
-      if ((++spins & 1023u) != 0) continue;
-      if (*reinterpret_cast<volatile int*>(w.error) != 0) {
-        failed = 1;
-        break;
-      }
-      const unsigned long long now = global_ns();
-      if (start == 0) start = now;
-      if (now - start > timeout) {
-        if (atomicCAS(w.error, 0, (int)blockIdx.x + 1) == 0) {
-          w.error[1] = tag;
-          w.error[2] = (int)got;
-        }
-        failed = 1;
-        break;
-      }
-    }
+    failed = wait_count(w.counter, 0u, target, w.error, (int)blockIdx.x, tag,
+                        timeout);
   }
   return __syncthreads_or(failed) != 0;
 }
