@@ -50,12 +50,23 @@ first failure (no phase's failure is caught):
    ``torch_sim`` (README config n=32 a=14 d=2048 c=3 ``--chained
    --verify``, then n=1024 a=64 c=16 ``--verify``: 64 padded rounds, a
    2.15 GB recv arena) and on ``cuda_fused`` (README config ``--chained
-   --verify``), then ``python -m tpu_aggcomm_torch.bench``, failing
-   unless K1 and K2 launched; then m=1 on ``cuda_dma`` and
-   ``cuda_dma_conc`` (README config ``--verify -k 5``) and ``-m 0`` on
-   ``cuda_dma``, failing unless K3 launched;
-6. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and as
-   the last line ``{"ok": true, "device": {...}}``.
+   --verify``; on the card a chain is CUDA graph replays, and K2's count
+   adds the reps each replay runs), then ``python -m
+   tpu_aggcomm_torch.bench``, failing unless K1 and K2 launched; then m=1
+   on ``cuda_dma`` and ``cuda_dma_conc`` (README config ``--verify -k
+   5``) and ``-m 0`` on ``cuda_dma`` (TAM and m=5/8 routed to
+   ``torch_sim``), failing unless K3 launched; then ``--measured-phases
+   --verify`` and ``--profile-rounds --verify`` on ``torch_sim`` for m=1
+   and m=2 at the README config and m=1 at n=256 a=16 c=16, and TAM m=15
+   and m=16 ``--measured-phases --verify`` at n=32 a=14 ``-p 1`` and ``-p
+   4`` and at n=1024 a=64 c=16 ``-p 64``, each decomposition held to sum
+   to its chained total, and ``-m 0 --verify`` on ``torch_sim`` (20
+   methods) and ``cuda_fused`` (16: TAM and the dense collectives
+   dropped), failing unless K2 launched;
+6. a ``measured phases {...}`` line (each decomposition in
+   microseconds), each phase's wall time, a ``{"kernels": [...]}`` line,
+   the ``nvidia-smi`` line again, and as the last line ``{"ok": true,
+   "device": {...}}``.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -726,15 +737,125 @@ def phase_main_path() -> dict:
     dma_steps.launches = 0
     run_cli([[*dma, "--backend", "cuda_dma", "-k", "5"],
              [*dma, "--backend", "cuda_dma_conc", "-k", "5"]])
-    with contextlib.chdir(OUT_DIR):
+    buf = io.StringIO()
+    with contextlib.chdir(OUT_DIR), contextlib.redirect_stdout(buf):
         run_cli([["-n", "32", "-m", "0", "-a", "14", "-d", "2048", "-c",
                   "3", "--backend", "cuda_dma", "--verify",
                   "--results-csv", csv]])
+    print(buf.getvalue(), end="", flush=True)
+    check(buf.getvalue().count("max total time") == 20
+          and "Many to all TAM max total time" in buf.getvalue(),
+          "-m 0 on cuda_dma did not run the 20 methods, TAM routed")
     counts["dma_steps"] = reps["dma_steps"] = dma_steps.launches
     print(f"# main-path launches (cuda_dma): {counts['dma_steps']}",
           flush=True)
     check(counts["dma_steps"] > 0, "K3 was not launched on the main path")
-    return {"counts": counts, "reps": reps, "bench": record}
+
+    # slice 5's path: measured phases, profile_rounds and TAM on
+    # torch_sim, -m 0 on torch_sim and cuda_fused
+    fused_rep.launches = 0
+    t0 = time.perf_counter()
+    measured = phase_measured(csv)
+    measured_s = time.perf_counter() - t0
+    counts["fused_rep"] += fused_rep.launches
+    reps["fused_rep"] += fused_rep.launches
+    print(f"# main-path launches (measured phases, -m 0): "
+          f"{fused_rep.launches} of K2", flush=True)
+    check(fused_rep.launches > 0,
+          "K2 was not launched by -m 0 on cuda_fused")
+    return {"counts": counts, "reps": reps, "bench": record,
+            "measured": measured, "measured_s": measured_s}
+
+
+def argv_of(cell: dict) -> list:
+    """CLI flags of a cell ``dict(n, m, a, d, c, p)``."""
+    return [x for k in ("n", "m", "a", "d", "c", "p")
+            for x in (f"-{k}", str(cell[k]))]
+
+
+def phase_measured(csv: str) -> dict:
+    """``--measured-phases --verify`` and ``--profile-rounds --verify``
+    through ``cli run`` on torch_sim: m=1 and m=2 at the README shape and
+    m=1 at n=256 a=16 c=16 (round splits); TAM m=15 and m=16 at n=32 a=14
+    ``-p 1`` and ``-p 4`` and at n=1024 a=64 c=16 ``-p 64`` (hop splits);
+    each decomposition held to sum to its chained total (the backend's
+    cached ``measure_per_rep``). Then ``-m 0 --verify`` on torch_sim and
+    cuda_fused at the README shape. Returns each cell's decomposition in
+    microseconds."""
+    from tpu_aggcomm_torch.backends import registry
+    from tpu_aggcomm_torch.core.methods import compile_method
+    from tpu_aggcomm_torch.core.pattern import AggregatorPattern
+    from tpu_aggcomm_torch.harness import runner
+
+    made = []
+
+    def recording(*args, **kw):
+        made.append(registry.get_backend(*args, **kw))
+        return made[-1]
+
+    rounds = [dict(README, m=m, p=1) for m in (1, 2)] + \
+        [dict(n=256, a=16, d=2048, c=16, m=1, p=1)]
+    tam = [dict(n=32, a=14, d=2048, c=3, m=m, p=p)
+           for p in (1, 4) for m in (15, 16)] + \
+        [dict(n=1024, a=64, d=2048, c=16, m=m, p=64) for m in (15, 16)]
+    out = {}
+    runner.get_backend = recording
+    try:
+        for cell in rounds + tam:
+            label = " ".join(f"{k}={cell[k]}" for k in
+                             ("m", "n", "a", "c", "p"))
+            run_cli([[*argv_of(cell), "--measured-phases", "--verify",
+                      "--results-csv", csv]])
+            b = made[-1]
+            s = compile_method(cell["m"], AggregatorPattern(
+                cell["n"], cell["a"], data_size=cell["d"],
+                comm_size=cell["c"], proc_node=cell["p"]))
+            total = b.measure_per_rep(s)          # cached: the chained total
+            parts = b.last_round_times[0]
+            check(min(parts) >= 0 and abs(sum(parts) - total)
+                  <= 1e-9 * max(total, 1e-9),
+                  f"{label}: decomposition {parts} does not sum to the "
+                  f"chained total {total}")
+            if cell["m"] in (15, 16):
+                hops = b.measure_tam_hops(s)      # cached
+                row = {k: hops[k] * 1e6 for k in ("p2", "p3", "p4")}
+            else:
+                splits = b.measure_round_splits(s)  # cached
+                row = {"post": [v[0] * 1e6 for v in splits.values()],
+                       "deliver": [v[1] * 1e6 for v in splits.values()]}
+            row.update(total_us=total * 1e6, provenance=b.last_provenance[1])
+            out[label] = row
+            print(f"# {label}: {b.last_provenance[1]}; chained total "
+                  f"{total * 1e6:.3f} us = sum of {len(parts)} measured "
+                  f"parts {[round(x * 1e6, 3) for x in parts]}", flush=True)
+        for cell in rounds:
+            run_cli([[*argv_of(cell), "--profile-rounds", "--verify",
+                      "--results-csv", csv]])
+            b = made[-1]
+            check(b.last_provenance[1] == "attributed-rounds",
+                  f"--profile-rounds: {b.last_provenance}")
+            out[f"profile m={cell['m']} n={cell['n']}"] = {
+                "round_us": [x * 1e6 for x in b.last_round_times[0]]}
+    finally:
+        runner.get_backend = registry.get_backend
+    # -m 0: every dispatched method on torch_sim; the fusable subset on
+    # cuda_fused (TAM and the dense collectives dropped). m=13 writes its
+    # per-rank CSVs into the working directory.
+    with contextlib.chdir(OUT_DIR):
+        for backend, expect in (("torch_sim", 20), ("cuda_fused", 16)):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                run_cli([["-n", "32", "-m", "0", "-a", "14", "-d", "2048",
+                          "-c", "3", "--backend", backend, "--verify",
+                          "--results-csv", csv]])
+            got = buf.getvalue()
+            print(got, end="", flush=True)
+            check(got.count("max total time") == expect,
+                  f"-m 0 on {backend}: {got.count('max total time')} "
+                  f"methods, expected {expect}")
+            check(("TAM max total time" in got) == (backend == "torch_sim"),
+                  f"-m 0 on {backend}: TAM routing")
+    return out
 
 
 def main() -> int:
@@ -753,16 +874,27 @@ def main() -> int:
     smi = nvidia_smi()
     print(smi, flush=True)
     dev = torch.device("cuda")
-    phase_setup()
-    k1 = phase_k1(dev)
-    k2 = phase_k2(dev)
-    k3 = phase_k3(dev)
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        got = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        return got
+
+    timed("setup", phase_setup)
+    k1 = timed("k1", phase_k1, dev)
+    k2 = timed("k2", phase_k2, dev)
+    k3 = timed("k3", phase_k3, dev)
     k3_row = dict(k3["lockstep"], us_per_rep=k3["lockstep"]["ms"] * 1e3,
                   us_per_fence=k3["lockstep"]["us_per_wave"], concurrent={
                       k: v for k, v in k3["concurrent"].items()
                       if k != "shape"})
-    main_path = phase_main_path()
+    main_path = timed("main_path", phase_main_path)
     counts = main_path["counts"]
+    print("measured phases " + json.dumps(main_path["measured"]))
+    walls["main_path.measured"] = main_path["measured_s"]
+    print(f"# phase walls (s): {json.dumps(walls)}")
     # no single PyTorch call computes any of these functions (a permuted
     # copy plus XOR; a round-fenced scatter of rows; a semaphore-
     # synchronized step program), so library_ms is null; K1's and K2's

@@ -373,9 +373,14 @@ def test_malformed_step_table_is_refused_on_the_host(kind, needle):
 
 
 def test_refuses_tam_and_fault_injected_schedules():
+    """Fault-injected schedules are refused by name. TAM is no longer
+    refused: it is routed to torch_sim on the same device, as the
+    reference routes it to jax_sim (tests/test_torch_tam.py)."""
     b = cuda_dma.CudaDmaBackend("cpu")
-    with pytest.raises(NotPortedError, match="TAM"):
-        b.run(object())
+    tam = compile_method(15, AggregatorPattern(8, 3, data_size=64,
+                                               proc_node=2))
+    b.run(tam, verify=True)
+    assert b.last_provenance == ("torch_sim", "attributed")
     _rs, s = _pair(1, SMALL)
     s.fault = "dead:0-1"
     with pytest.raises(NotPortedError, match="fault"):
@@ -455,17 +460,18 @@ def test_console_block_and_csv_match_reference_pallas_dma(tmp_path, capsys):
 
 def test_cli_run_all_on_cpu_routes_collectives(tmp_path, capsys,
                                                monkeypatch):
-    """-m 0 covers all 18 non-TAM methods: the 16 stepped ones on the
-    transport, m=5/8 routed to torch_sim (recorded in the provenance)."""
+    """-m 0 covers all 20 dispatched methods: the 16 stepped ones on the
+    transport, m=5/8 and TAM m=15/16 routed to torch_sim (recorded in the
+    provenance)."""
     monkeypatch.chdir(tmp_path)
     assert cli.main(["-n", "8", "-m", "0", "-a", "3", "-d", "32", "-c", "3",
                      "--backend", "cuda_dma_conc", "--device", "cpu",
                      "--verify", "--results-csv",
                      str(tmp_path / "r.csv")]) == 0
-    assert capsys.readouterr().out.count("max total time") == 18
+    assert capsys.readouterr().out.count("max total time") == 20
     prov = (tmp_path / "r.provenance.csv").read_text().splitlines()[1:]
     executed = [ln.split(",")[-2] for ln in prov]
-    assert executed.count("torch_sim") == 2
+    assert executed.count("torch_sim") == 4
     assert executed.count("cuda_dma_conc") == 16
 
 

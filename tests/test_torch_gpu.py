@@ -34,6 +34,8 @@ from tpu_aggcomm_torch.backends.torch_sim import (TorchSimBackend,
                                                   dense_send_lanes)
 from tpu_aggcomm_torch.core.methods import compile_method
 from tpu_aggcomm_torch.core.pattern import AggregatorPattern
+from tpu_aggcomm_torch.harness import chained
+from tpu_aggcomm_torch.harness.verify import slot_shapes
 from tpu_aggcomm_torch.native.fuse import (FusePlan, check_fence, fuse_plan,
                                            fused_plan, fused_rep,
                                            fused_rep_plain, plan_tables)
@@ -374,3 +376,110 @@ def test_dma_stamps_order_every_wave(cuda, concurrent):
     assert st[0, 0] <= st[0, 1] <= waves[0]
     assert (waves[1:] >= waves[:-1]).all()
     assert waves[-1] <= st[0, 2]
+
+
+
+# --------------------------------------------------------------------------
+# the chain as CUDA graph replays; truncated programs and TAM on the card
+
+def _readme(method=1, **kw):
+    return compile_method(method, AggregatorPattern(
+        32, 14, data_size=2048, comm_size=3, **kw))
+
+
+@pytest.mark.parametrize("iters", [5, 50, 53, 1050])
+@pytest.mark.parametrize("backend", [TorchSimBackend, CudaFusedBackend])
+def test_graph_chain_equals_the_eager_chain(cuda, backend, iters):
+    """Blocks of 50 reps replayed (and a 3- or 5-rep remainder graph):
+    the end state is byte-equal to the eager chain's, a second chain of
+    the same family starts over from send0, and K2's counter counts every
+    replayed rep (the warm-up rep is one real launch)."""
+    s = _readme()
+    b = backend(device="cuda")
+    rep, p = b.one_rep(s), s.pattern
+    _, n_recv = slot_shapes(p)
+    send0 = b._global_send(p, 0)
+    want = chained.eager_chain(rep, n_recv)(iters)(send0)
+    make_chain = b._chain_factory(rep, p)
+    for first in (True, False):
+        before = fused_rep.launches
+        got = make_chain(iters)(send0)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        if backend is CudaFusedBackend:
+            assert fused_rep.launches - before == iters + first
+            check_fence(rep.tables)
+    assert not torch.equal(got, send0)
+
+
+def test_eager_chain_on_the_card_equals_the_cpu_chain(cuda):
+    """The eager chain on the card and on the CPU (held against the
+    reference in tests/test_torch_sim.py) end in the same bytes."""
+    s = _readme(1)
+    got = TorchSimBackend("cuda")
+    cpu = TorchSimBackend("cpu")
+    _, n_recv = slot_shapes(s.pattern)
+    want = chained.eager_chain(cpu.one_rep(s), n_recv)(7)(
+        cpu._global_send(s.pattern, 0))
+    out = chained.eager_chain(got.one_rep(s), n_recv)(7)(
+        got._global_send(s.pattern, 0))
+    np.testing.assert_array_equal(to_reference(out), to_reference(want))
+
+
+@pytest.mark.parametrize("method", [1, 2, 17])
+def test_truncated_reps_on_the_card_equal_the_cpu(cuda, method):
+    s = _readme(method)
+    g, c = TorchSimBackend("cuda"), TorchSimBackend("cpu")
+    sg, sc = g._global_send(s.pattern, 0), c._global_send(s.pattern, 0)
+    R = len(c._round_segments(s)[0])
+    builds = ([lambda b, k=k: b._one_rep(s, upto=k) for k in range(1, R)]
+              + [lambda b, k=k: b._one_rep_hybrid(s, k)
+                 for k in range(1, R + 1)]
+              + [lambda b: b._one_rep_scatters(s)])
+    for build in builds:
+        np.testing.assert_array_equal(to_reference(build(g)(sg)),
+                                      to_reference(build(c)(sc)))
+
+
+@pytest.mark.parametrize("upto_hop", [None, 1, 2])
+@pytest.mark.parametrize("method,proc_node", [(15, 1), (15, 4), (16, 4)])
+def test_tam_rep_on_the_card_equals_the_cpu(cuda, method, proc_node,
+                                            upto_hop):
+    s = _readme(method, proc_node=proc_node)
+    g, c = TorchSimBackend("cuda"), TorchSimBackend("cpu")
+    got = g._tam_rep(s, upto_hop=upto_hop)(g._global_send(s.pattern, 1))
+    want = c._tam_rep(s, upto_hop=upto_hop)(c._global_send(s.pattern, 1))
+    np.testing.assert_array_equal(to_reference(got), to_reference(want))
+    if upto_hop is None:
+        g.run(s, verify=True)
+
+
+@pytest.mark.parametrize("method", [1, 15])
+def test_measured_phases_sum_to_the_chained_total_on_the_card(cuda,
+                                                              method):
+    s = _readme(method, proc_node=4)
+    b = TorchSimBackend("cuda")
+    kw = dict(iters_small=50, iters_big=250, trials=1, windows=1)
+    if method == 15:
+        parts = b.measure_tam_hops(s, **kw)
+        total = parts.pop("total")
+        values = list(parts.values())
+    else:
+        splits = b.measure_round_splits(s, **kw)
+        values = [x for pair in splits.values() for x in pair]
+        total = b.measure_per_rep(s, **kw)
+    assert min(values) >= 0
+    assert sum(values) == pytest.approx(total)
+
+
+def test_chain_capture_failure_is_named(cuda):
+    """A rep that reads back to the host cannot be captured: the chain
+    raises ChainCaptureError, never falls back to the eager chain."""
+    def rep(send):
+        int(send.sum().item())
+        return send.new_zeros((2, 2, send.shape[2]))
+
+    send0 = torch.zeros((2, 2, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(chained.ChainCaptureError, match="CUDA graph"):
+        chained.graph_chain(rep, 1)(5)(send0)
+    torch.cuda.synchronize()

@@ -205,16 +205,48 @@ def test_default_device_is_cuda_and_refuses_without_a_card(monkeypatch):
 
 
 def test_unported_features_raise_named_errors():
+    """The faulted lowering is the one feature still to port: a
+    fault-injected schedule is refused by name, and its round prefixes
+    and measured phases are refused as the reference refuses them.
+    (Round prefixes, measured phases, profile_rounds and TAM run since
+    they were ported: tests/test_torch_phases.py, tests/test_torch_tam.py.)"""
     s = compile_method(1, AggregatorPattern(8, 3, data_size=256,
                                             comm_size=2))
     b = TorchSimBackend("cpu")
-    for kw in ({"profile_rounds": True}, {"measured_phases": True}):
-        with pytest.raises(NotPortedError, match="ROADMAP"):
-            b.run(s, **kw)
-    with pytest.raises(NotPortedError, match="truncation"):
-        b._one_rep(s, upto=1)
     from dataclasses import replace
+    faulted = replace(s, fault="slow:r1*2.0")
     with pytest.raises(NotPortedError, match="fault"):
-        b.one_rep(replace(s, fault="slow:r1*2.0"))
-    with pytest.raises(NotPortedError, match="TAM"):
+        b.one_rep(faulted)
+    with pytest.raises(NotPortedError, match="ROADMAP"):
+        b.run(faulted)
+    with pytest.raises(ValueError, match="truncation"):
+        b._one_rep(faulted, upto=1)
+    with pytest.raises(ValueError, match="fault-injected"):
+        b.run(faulted, measured_phases=True)
+    with pytest.raises(TypeError, match="not a schedule"):
         b.one_rep(object())
+
+
+@pytest.mark.parametrize("iters", [0, 5, 50, 53, 120])
+@pytest.mark.parametrize("method,shape", [(1, SHAPES[0]), (17, SHAPES[1]),
+                                          (5, SHAPES[2])])
+def test_graph_chain_blocks_equal_the_eager_chain(method, shape, iters,
+                                                  monkeypatch):
+    """The graph chain's bookkeeping, rehearsed on the CPU: with capture
+    replaced by a replay of the captured body, whole blocks of 50 reps
+    plus a remainder, the device rep counter and the in-place byte XOR
+    end in the eager chain's bytes for any chain length, twice over one
+    family; the counter is never reset inside a chain."""
+    from tpu_aggcomm_torch.harness import chained
+    monkeypatch.setattr(chained, "_capture", lambda fn, state: fn)
+    _rs, s = _pair(method, shape)
+    b = TorchSimBackend("cpu")
+    _, n_recv = slot_shapes(s.pattern)
+    send0 = from_reference(_near_wrap_send(s.pattern, seed=iters), "cpu")
+    want = chained.eager_chain(b.one_rep(s), n_recv)(iters)(send0)
+    make_chain = chained.graph_chain(b.one_rep(s), n_recv)
+    for _ in range(2):
+        assert torch.equal(make_chain(iters)(send0), want)
+    monkeypatch.setattr(chained, "GRAPH_BLOCK", 7)
+    assert torch.equal(chained.graph_chain(b.one_rep(s), n_recv)(iters)(
+        send0), want)

@@ -50,6 +50,22 @@ def test_registry_matches_reference_minus_tam():
         assert METHODS[m].direction.value == REF_METHODS[m].direction.value
 
 
+def test_registry_matches_reference():
+    """The whole dispatched registry, TAM included now that the port's
+    ``tam.engine`` imports: 20 methods, the same ids, names, directions
+    and TAM flags, and every undispatched id the same too."""
+    ref_ids = [m for m in REF_METHODS if REF_METHODS[m].dispatched]
+    assert method_ids() == ref_ids
+    assert len(method_ids()) == 20
+    assert [m for m in method_ids() if METHODS[m].tam] == [15, 16]
+    assert sorted(METHODS) == sorted(REF_METHODS)
+    for m in METHODS:
+        assert METHODS[m].name == REF_METHODS[m].name
+        assert METHODS[m].direction.value == REF_METHODS[m].direction.value
+        assert METHODS[m].tam == REF_METHODS[m].tam
+        assert METHODS[m].dispatched == REF_METHODS[m].dispatched
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("method", NON_TAM)
 def test_pattern_and_send_lanes_match(method, shape):

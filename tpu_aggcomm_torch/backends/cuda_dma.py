@@ -40,11 +40,12 @@ Mosaic padding of the TPU kernel (``pds = _pad128(d)``, rows shaped
 ``(4, pds/4)``) is not carried over: arenas are ``(n, S+1, d)`` and
 ``(n, R+1, d)`` uint8, dummy send row and trash recv row last.
 
-Dense collectives (m=5/8) are routed by method to this package's own
-:class:`TorchSimBackend` on the same device, whose provenance is
-recorded: the reference hands them to ``jax_ici``, which needs one device
-per rank and is not ported. This is a routing, not a fallback on failure.
-TAM schedules and fault-injected schedules raise :class:`NotPortedError`.
+Dense collectives (m=5/8) and TAM (m=15/16) are routed by method to this
+package's own :class:`TorchSimBackend` on the same device, whose
+provenance is recorded: the reference hands TAM to ``jax_sim`` and the
+collectives to ``jax_ici``, which needs one device per rank and is not
+ported. This is a routing, not a fallback on failure. Fault-injected
+schedules raise :class:`NotPortedError`.
 """
 
 from __future__ import annotations
@@ -67,6 +68,7 @@ from tpu_aggcomm_torch.harness.attribution import attribute_total, weights_for
 from tpu_aggcomm_torch.harness.timer import Timer
 from tpu_aggcomm_torch.harness.verify import recv_slot_counts, verify_recv
 from tpu_aggcomm_torch.native.fuse import zero_runs_of
+from tpu_aggcomm_torch.tam.engine import TamMethod
 
 __all__ = ["CudaDmaBackend", "DmaTables", "DmaCapacityError",
            "DmaProtocolError", "DmaTableError", "barrier_shifts",
@@ -601,15 +603,11 @@ class CudaDmaBackend:
                 f"{self.name}: --chained is not supported (the step program "
                 f"is timed whole per rep, as pallas_dma is); use torch_sim "
                 f"or cuda_fused for chained timing")
-        if not isinstance(schedule, Schedule):
-            raise NotPortedError(
-                f"{self.name}: {getattr(schedule, 'name', schedule)!r} is a "
-                f"TAM schedule; the TAM route is not ported yet, see "
-                f"ROADMAP.md")
-        if schedule.collective:
-            # dense m=5/8 have no permutation steps: routed by method to
-            # the rank-axis exchange on the same device (the reference
-            # routes them to jax_ici, which is not ported)
+        if isinstance(schedule, TamMethod) or schedule.collective:
+            # TAM's 3-hop relay and the dense m=5/8 have no permutation
+            # steps: routed by method to the rank-axis lowering on the
+            # same device (the reference routes TAM to jax_sim and the
+            # collectives to jax_ici, which is not ported)
             if self._sim_delegate is None:
                 self._sim_delegate = TorchSimBackend(device=self.device)
             sb = self._sim_delegate

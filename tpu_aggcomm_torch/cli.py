@@ -3,8 +3,9 @@
 The port of ``tpu_aggcomm/cli.py``'s ``run`` command: reference grammar
 ``"hp:c:m:d:a:i:k:t:b:"`` (mpi_test.c:2130-2166) plus ``-n`` (rank count;
 the reference gets it from ``mpiexec -n``), ``--backend``, ``--verify``,
-``--chained``, ``--device`` and ``--results-csv``. It runs on the CUDA
-device unless ``--device cpu`` is given.
+``--chained``, ``--profile-rounds``, ``--measured-phases``, ``--device``
+and ``--results-csv``. It runs on the CUDA device unless ``--device cpu``
+is given.
 
 Examples::
 
@@ -12,6 +13,8 @@ Examples::
     python -m tpu_aggcomm_torch.cli -n 8 -m 1 -a 3 -d 256 -c 2 --device cpu --verify
     python -m tpu_aggcomm_torch.cli -m 0 -a 14 -d 2048 -c 3 --backend cuda_fused --chained
     python -m tpu_aggcomm_torch.cli -m 1 -a 14 -d 2048 -c 3 --backend cuda_dma_conc --verify
+    python -m tpu_aggcomm_torch.cli -m 2 -a 14 -d 2048 -c 3 --measured-phases --verify
+    python -m tpu_aggcomm_torch.cli -m 15 -a 14 -d 2048 -p 4 --measured-phases --verify
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="logical ranks (reference: mpiexec -n); all of "
                          "them live on one device")
     ap.add_argument("-m", dest="method", type=int, default=0,
-                    help="method id (0 = all dispatched, non-TAM methods)")
+                    help="method id (0 = all dispatched methods)")
     ap.add_argument("-a", dest="cb_nodes", type=int, default=1,
                     help="number of aggregators (cb_nodes)")
     ap.add_argument("-d", dest="data_size", type=int, default=0,
@@ -59,16 +62,25 @@ def build_parser() -> argparse.ArgumentParser:
                     help="deterministic-fill verification of every "
                          "delivered byte")
     ap.add_argument("--chained", action="store_true",
-                    help="serial-chained on-device per-rep measurement "
-                         "(differenced chain lengths cancel the fixed "
-                         "per-call overhead)")
+                    help="torch_sim/cuda_fused: serial-chained on-device "
+                         "per-rep measurement (on the card the chain runs "
+                         "as CUDA graph replays; differenced chain lengths "
+                         "cancel the fixed per-call overhead)")
+    ap.add_argument("--profile-rounds", action="store_true",
+                    help="torch_sim: time each throttle round separately "
+                         "(one launch sequence and synchronize per round, "
+                         "host clock)")
+    ap.add_argument("--measured-phases", action="store_true",
+                    help="torch_sim, round-structured methods and TAM "
+                         "m=15/16: MEASURED per-round / per-hop durations "
+                         "via chained prefix-truncation differencing "
+                         "(single-round schedules take the measured "
+                         "post/deliver split); phase columns marked "
+                         "'measured-rounds/-hops/-split...+attributed(...)' "
+                         "in the provenance sidecar")
     ap.add_argument("--results-csv", default="results.csv")
     # reference flags whose machinery is not ported yet: accepted so the
     # refusal is named, never an argparse usage error
-    ap.add_argument("--profile-rounds", action="store_true",
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--measured-phases", action="store_true",
-                    help=argparse.SUPPRESS)
     ap.add_argument("--xprof", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--fault", default=None, help=argparse.SUPPRESS)
     return ap

@@ -4,9 +4,12 @@ reduction, console/CSV reporting, optional verification.
 
 The port of ``tpu_aggcomm/harness/runner.py``, trimmed to the ``run``
 path: the console block and ``results.csv`` rows are byte-identical in
-format to the reference's. Fault injection, measured phases,
-``profile_rounds``, the profiler cross-check and the resilience layer are
-not ported yet and raise :class:`NotPortedError` by name.
+format to the reference's, and the upfront guards of ``--chained``,
+``--profile-rounds`` and ``--measured-phases`` refuse what the
+reference's refuse, before any method runs. Fault injection and the
+profiler cross-check are not ported yet and raise
+:class:`NotPortedError` by name; the resilience layer and the run ledger
+are not ported.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from tpu_aggcomm_torch.backends.torch_sim import NotPortedError
 from tpu_aggcomm_torch.core.methods import METHODS, compile_method, method_ids
 from tpu_aggcomm_torch.core.pattern import AggregatorPattern
 from tpu_aggcomm_torch.core.schedule import schedule_shape_key
+from tpu_aggcomm_torch.harness.chained import MAX_MEASURED_ROUNDS
 from tpu_aggcomm_torch.harness.report import (append_provenance,
                                               config_banner, save_all_timing,
                                               summarize_results)
@@ -47,17 +51,17 @@ class ExperimentConfig:
     verify: bool = False         # --verify
     results_csv: str | None = "results.csv"
     chained: bool = False        # --chained: serial-chained timing
-    profile_rounds: bool = False   # not ported yet
-    measured_phases: bool = False  # not ported yet
+    profile_rounds: bool = False   # torch_sim: one timed launch per round
+    measured_phases: bool = False  # torch_sim: measured per-round times
+    #                                (round-prefix truncation
+    #                                differencing), TAM hops; single-round
+    #                                schedules take the post/deliver split
     xprof: str | None = None       # not ported yet
     fault: str | None = None       # not ported yet
 
 
 def _refuse_unported(cfg: ExperimentConfig) -> None:
-    for flag, on in (("--fault", cfg.fault),
-                     ("--measured-phases", cfg.measured_phases),
-                     ("--profile-rounds", cfg.profile_rounds),
-                     ("--xprof", cfg.xprof)):
+    for flag, on in (("--fault", cfg.fault), ("--xprof", cfg.xprof)):
         if on:
             raise NotPortedError(
                 f"{flag} is not ported to tpu_aggcomm_torch yet; see "
@@ -72,6 +76,23 @@ def run_experiment(cfg: ExperimentConfig, *, out=None) -> list[dict]:
                          "(the reference's -d 0 default sends empty messages; "
                          "pass an explicit size)")
     _refuse_unported(cfg)
+    if cfg.chained and cfg.profile_rounds:
+        raise ValueError("--chained and --profile-rounds are exclusive "
+                         "(one program vs per-round programs)")
+    if cfg.profile_rounds and cfg.backend != "torch_sim":
+        raise ValueError(
+            "--profile-rounds requires --backend torch_sim (per-round "
+            "launch sequences exist only there; cuda_fused runs a rep as "
+            "one kernel, cuda_dma attributes whole-rep time)")
+    if cfg.measured_phases:
+        if cfg.backend != "torch_sim":
+            raise ValueError(
+                "--measured-phases requires --backend torch_sim "
+                "(truncation-differenced round/phase measurement exists "
+                "only on the chained rank-axis programs)")
+        if cfg.profile_rounds:
+            raise ValueError("--measured-phases and --profile-rounds are "
+                             "exclusive")
     if cfg.chained and cfg.backend in ("cuda_dma", "cuda_dma_conc"):
         # fail BEFORE any method runs, as the reference refuses --chained
         # on pallas_dma: the step program is timed whole per rep
@@ -84,10 +105,6 @@ def run_experiment(cfg: ExperimentConfig, *, out=None) -> list[dict]:
         if m not in METHODS:
             raise ValueError(f"unknown method id {m}; valid ids: "
                              f"{sorted(METHODS)}")
-        if METHODS[m].tam:
-            raise NotPortedError(
-                f"method {m} ({METHODS[m].name}) runs the TAM engine, which "
-                f"is not ported to tpu_aggcomm_torch yet; see ROADMAP.md")
     backend = get_backend(cfg.backend, device=cfg.device)
     pattern = AggregatorPattern(
         nprocs=cfg.nprocs, cb_nodes=cfg.cb_nodes,
@@ -103,25 +120,60 @@ def run_experiment(cfg: ExperimentConfig, *, out=None) -> list[dict]:
                 for m in methods}
     if cfg.backend == "cuda_fused":
         # fail BEFORE any method runs: a run-all sweep hitting an
-        # unfusable method mid-run would leave a partial CSV. -m 0 on
-        # this backend means "the fusable subset", while naming a dense
-        # collective explicitly must still refuse upfront.
-        unfusable = [m for m in methods if compiled[m].collective]
+        # unfusable method mid-run would leave a partial CSV. TAM and the
+        # dense collectives have no throttle rounds to fuse; -m 0 on this
+        # backend means "the fusable subset", while naming one of them
+        # explicitly must still refuse upfront.
+        unfusable = [m for m in methods
+                     if METHODS[m].tam or compiled[m].collective]
         if cfg.method == 0:
             methods = [m for m in methods if m not in unfusable]
         elif unfusable:
             raise ValueError(
                 f"--backend cuda_fused does not support methods "
-                f"{unfusable} (the dense collectives have no throttle "
-                f"rounds to fuse); run them on torch_sim")
+                f"{unfusable} (TAM's staged engine and the dense "
+                f"collectives have no throttle rounds to fuse); run them "
+                f"on torch_sim")
+    if cfg.measured_phases:
+        # fail upfront: the truncation measurement exists for
+        # round-structured schedules and for TAM's 3-hop relay on
+        # torch_sim; dense collectives have no decomposition
+        bad = [m for m in methods
+               if compiled[m].collective
+               or (METHODS[m].tam and cfg.backend != "torch_sim")]
+        if bad:
+            raise ValueError(
+                f"--measured-phases does not support methods {bad} here "
+                f"(dense collectives have no decomposition to truncate; "
+                f"TAM hop measurement runs on torch_sim only); pick "
+                f"round-structured methods with -m")
+        # ... and only for schedules shallow enough to build one prefix
+        # chain per round (the pairwise methods are always nprocs rounds
+        # regardless of -c)
+        deep = [m for m in methods
+                if not METHODS[m].tam
+                and len({int(e[4]) for e in compiled[m].data_edges()})
+                > MAX_MEASURED_ROUNDS]
+        if deep:
+            raise ValueError(
+                f"--measured-phases does not support methods {deep} here: "
+                f"more than {MAX_MEASURED_ROUNDS} throttle rounds (one "
+                f"prefix chain is built per round); use --profile-rounds "
+                f"for very deep schedules")
     records = []
     for i in range(cfg.iters):
         for m in methods:
             spec = METHODS[m]
             sched = compiled[m]
+            kwargs = {}
+            if cfg.chained:
+                kwargs["chained"] = True
+            if cfg.profile_rounds:
+                kwargs["profile_rounds"] = True
+            if cfg.measured_phases:
+                kwargs["measured_phases"] = True
             recv, timers = backend.run(sched, ntimes=cfg.ntimes, iter_=i,
-                                       verify=cfg.verify,
-                                       chained=cfg.chained)
+                                       verify=cfg.verify, **kwargs)
             max_timer = max_reduce(timers)
             summarize_results(cfg.nprocs, cfg.cb_nodes, cfg.data_size,
                               cfg.comm_size, cfg.ntimes, cfg.agg_type,

@@ -106,7 +106,7 @@ def fuse_plan(schedule) -> FusePlan:
         raise UnfusableScheduleError(
             f"{getattr(schedule, 'name', schedule)!r}: the hierarchical "
             f"TAM engine has no rank op programs to fuse (m=15/16 run "
-            f"their 3-hop relay on jax_sim)")
+            f"their 3-hop relay on torch_sim)")
     if schedule.collective:
         raise UnfusableScheduleError(
             f"schedule {schedule.name!r} is a dense collective (m=5/8): "
