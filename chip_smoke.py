@@ -63,7 +63,23 @@ first failure (no phase's failure is caught):
    to its chained total, and ``-m 0 --verify`` on ``torch_sim`` (20
    methods) and ``cuda_fused`` (16: TAM and the dense collectives
    dropped), failing unless K2 launched;
-6. a ``measured phases {...}`` line (each decomposition in
+6. slice 6's path (``faults_sweep``), its launch counts zeroed after
+   the kernel check and read at its end: the slow-rank delay kernel
+   (``csrc/slow_delay.cu``) against its plain version (acc and the whole
+   arena) on ``slow:r2*8`` at the README shape and at n=1024 a=64 c=16,
+   timed beside its bound; ``--chained --verify`` at the README shape
+   healthy and under ``--fault slow:r2*2``, ``*4``, ``*8``, failing
+   unless the per-rep time rises strictly with the factor; a repaired
+   ``deadlink:5>3`` on every round-structured method at the README shape
+   (the unrepairable ones refused by the repair) and ``deadlink:5>16``
+   at n=1024 a=64 c=16 ``--chained --verify``; the refusals of
+   ``cuda_fused`` and ``cuda_dma`` with a fault; ``sweep`` over the Theta
+   grid (m=1 and m=2 on ``torch_sim``, m=1 on ``cuda_fused``, m=1 at
+   n=1024 from ``-c 16`` up, less the one-round cells 2048-8192 that
+   repeat ``-c 1024``), each cell's chained per-rep time on a
+   ``# sweep`` line; and ``sweep --fault none --fault deadlink:5>3``
+   followed by a ``--resume`` that must skip every cell;
+7. a ``measured phases {...}`` line (each decomposition in
    microseconds), each phase's wall time, a ``{"kernels": [...]}`` line,
    the ``nvidia-smi`` line again, and as the last line ``{"ok": true,
    "device": {...}}``.
@@ -182,7 +198,7 @@ def phase_setup() -> None:
     lines = ptxas_report()
     check(all(any(k in ln for ln in lines) for k in
               ("exchange_chain_kernel", "fused_rep_kernel",
-               "dma_steps_kernel")),
+               "dma_steps_kernel", "slow_delay_kernel")),
           f"ptxas report lacks a kernel: {lines}")
     for ln in lines:
         print(f"# {ln}")
@@ -679,6 +695,27 @@ def phase_k3(dev) -> dict:
             for name, conc in (("lockstep", False), ("concurrent", True))}
 
 
+@contextlib.contextmanager
+def recorded_backends():
+    """The backends the runner makes while the block runs, in order (each
+    keeps its measured samples, so a chained cell's per-rep time is read
+    at full precision, not from the CSV's microseconds)."""
+    from tpu_aggcomm_torch.backends import registry
+    from tpu_aggcomm_torch.harness import runner
+
+    made = []
+
+    def recording(*args, **kw):
+        made.append(registry.get_backend(*args, **kw))
+        return made[-1]
+
+    runner.get_backend = recording
+    try:
+        yield made
+    finally:
+        runner.get_backend = registry.get_backend
+
+
 def run_cli(runs) -> None:
     from tpu_aggcomm_torch import cli
     for argv in runs:
@@ -782,16 +819,8 @@ def phase_measured(csv: str) -> dict:
     cached ``measure_per_rep``). Then ``-m 0 --verify`` on torch_sim and
     cuda_fused at the README shape. Returns each cell's decomposition in
     microseconds."""
-    from tpu_aggcomm_torch.backends import registry
     from tpu_aggcomm_torch.core.methods import compile_method
     from tpu_aggcomm_torch.core.pattern import AggregatorPattern
-    from tpu_aggcomm_torch.harness import runner
-
-    made = []
-
-    def recording(*args, **kw):
-        made.append(registry.get_backend(*args, **kw))
-        return made[-1]
 
     rounds = [dict(README, m=m, p=1) for m in (1, 2)] + \
         [dict(n=256, a=16, d=2048, c=16, m=1, p=1)]
@@ -799,8 +828,7 @@ def phase_measured(csv: str) -> dict:
            for p in (1, 4) for m in (15, 16)] + \
         [dict(n=1024, a=64, d=2048, c=16, m=m, p=64) for m in (15, 16)]
     out = {}
-    runner.get_backend = recording
-    try:
+    with recorded_backends() as made:
         for cell in rounds + tam:
             label = " ".join(f"{k}={cell[k]}" for k in
                              ("m", "n", "a", "c", "p"))
@@ -836,8 +864,6 @@ def phase_measured(csv: str) -> dict:
                   f"--profile-rounds: {b.last_provenance}")
             out[f"profile m={cell['m']} n={cell['n']}"] = {
                 "round_us": [x * 1e6 for x in b.last_round_times[0]]}
-    finally:
-        runner.get_backend = registry.get_backend
     # -m 0: every dispatched method on torch_sim; the fusable subset on
     # cuda_fused (TAM and the dense collectives dropped). m=13 writes its
     # per-rank CSVs into the working directory.
@@ -855,6 +881,258 @@ def phase_measured(csv: str) -> dict:
                   f"methods, expected {expect}")
             check(("TAM max total time" in got) == (backend == "torch_sim"),
                   f"-m 0 on {backend}: TAM routing")
+    return out
+
+
+def refused(argv, needle: str) -> str:
+    """Run the CLI expecting a one-line named refusal containing
+    ``needle``; returns the line."""
+    from tpu_aggcomm_torch import cli
+    print(f"$ python -m tpu_aggcomm_torch.cli {' '.join(argv)}  # refused",
+          flush=True)
+    try:
+        cli.main(argv)
+    except (SystemExit, ValueError) as e:
+        # a scope refusal exits with one line; an upfront guard of the
+        # runner raises ValueError, as the reference's does
+        line = str(e.code if isinstance(e, SystemExit) else e)
+        check(needle in line and "\n" not in line,
+              f"cli {argv}: refusal {line!r} lacks {needle!r}")
+        print(f"# {line[:160]}", flush=True)
+        return line
+    raise SmokeError(f"cli {argv} ran; a named refusal was expected")
+
+
+def delay_check(dev, cfg: dict, spec: str) -> dict:
+    """The delay kernel against its plain version on the card, on the
+    faulted schedule's own inputs: its live send lanes, the recv arena its
+    rounds leave, its slow ranks and iteration counts. Returns acc, the
+    errors and both times (CUDA graph of calls, and eager)."""
+    import torch
+
+    from tpu_aggcomm_torch.backends.slow_delay import (slow_delay,
+                                                       slow_delay_plain,
+                                                       slow_tables)
+    from tpu_aggcomm_torch.backends.torch_sim import (TorchSimBackend,
+                                                      _faulted_tables,
+                                                      dense_send_lanes)
+    from tpu_aggcomm_torch.backends.lanes import from_reference
+    from tpu_aggcomm_torch.core.methods import compile_method
+    from tpu_aggcomm_torch.core.pattern import AggregatorPattern
+    from tpu_aggcomm_torch.faults import parse_fault, repair_schedule
+    from tpu_aggcomm_torch.harness.verify import slot_shapes
+
+    s = repair_schedule(compile_method(cfg["m"], AggregatorPattern(
+        cfg["n"], cfg["a"], data_size=cfg["d"], comm_size=cfg["c"])),
+        parse_fault(spec))
+    _, n_recv = slot_shapes(s.pattern)
+    *_rest, slow = _faulted_tables(s, n_recv)
+    tabs = slow_tables(slow, dev)
+    send = from_reference(dense_send_lanes(s.pattern, 0), dev)
+    # the arena the rep leaves (its rounds, then the delay's zero delta)
+    recv0 = TorchSimBackend("cuda").one_rep(s)(send)
+    want = recv0.clone()
+    acc_plain = slow_delay_plain(send, want, tabs)
+    got = recv0.clone()
+    acc = slow_delay(send, got, tabs)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    check(err == 0 and torch.equal(got, want)
+          and torch.equal(acc, acc_plain),
+          f"slow_delay {cfg} {spec}: kernel != plain (acc "
+          f"{acc.tolist()} vs {acc_plain.tolist()})")
+    w = send.shape[2]
+    it = max(tabs.iters)
+    row = dict(shape=[cfg["n"], cfg["a"], cfg["d"], cfg["c"]], spec=spec,
+               slow_ranks=list(tabs.ranks), iters=list(tabs.iters),
+               acc=acc.tolist(), max_abs_err=err,
+               **timings(lambda: slow_delay(send, got, tabs),
+                         lambda: slow_delay_plain(send, want, tabs),
+                         20, 2, 50, 3, warmup=3))
+    # least time for the same work: the operations (an add, a floor
+    # modulo and an add per lane and iteration, over the card's 67 TFLOP/s
+    # float32 rate, the table's nearest integer figure) against the bytes
+    # (each slow rank's row read once, acc written, recv[r, 0, 0] read and
+    # written); latency, one block reduction an iteration, binds above both
+    ops = 3 * w * sum(tabs.iters)
+    nbytes = len(tabs.ranks) * (w * send.element_size() + 4
+                                + 2 * send.element_size())
+    ops_ms, bytes_ms = ops / 67e12 * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    row.update(us_per_iteration=row["ms"] * 1e3 / it,
+               bound_ms=max(ops_ms, bytes_ms),
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms)
+    print(f"slow_delay {spec} at n={cfg['n']} a={cfg['a']} c={cfg['c']}: "
+          f"ranks {row['slow_ranks']} x {row['iters']} iterations, acc "
+          f"{row['acc']} == plain, arena == plain; one launch "
+          f"{row['ms'] * 1e3:.3f} us device (CUDA graph), "
+          f"{row['eager_ms'] * 1e3:.3f} us eager, "
+          f"{row['us_per_iteration']:.4f} us/iteration; plain "
+          f"{row['plain_ms'] * 1e3:.3f} us device, "
+          f"{row['plain_eager_ms'] * 1e3:.3f} us eager; bound "
+          f"{row['bound_ms'] * 1e3:.5f} us ({row['bound_by']}: "
+          f"{ops} operations; bytes {bytes_ms * 1e3:.5f} us)", flush=True)
+    del got, want, recv0, send
+    return row
+
+
+def per_rep_us(backend) -> float:
+    """A chained run's per-rep time in microseconds, from the backend's
+    own samples (the median the CSV rounds to microseconds)."""
+    import statistics
+    return statistics.median(backend.last_samples) * 1e6
+
+
+def sweep_line(label: str, backends, grid) -> list:
+    cells = [round(per_rep_us(b), 3) for b in backends]
+    check(len(cells) == len(grid), f"{label}: {len(cells)} cells for "
+          f"{len(grid)} throttle values")
+    print(f"# sweep {label}: us/rep by -c " + json.dumps(
+        dict(zip(map(str, grid), cells))), flush=True)
+    return cells
+
+
+def phase_faults_sweep(dev) -> dict:
+    """Slice 6's path, through the CLI: the slow-rank delay kernel against
+    its plain version (README shape and n=1024 a=64 c=16, slow:r2*8), the
+    chained README time healthy and under slow:r2*2, *4, *8 (rising
+    strictly), the repaired dead link on every round-structured method at
+    the README shape and at n=1024 (chained, full width), the named
+    refusals, and sweep over the Theta grid: m=1 and m=2 on torch_sim,
+    m=1 on cuda_fused (K2 a cell), m=1 at n=1024 from -c 16 up, and the
+    fault axis with --resume. The delay's and K2's launch counts are
+    zeroed after the kernel check and read at the end."""
+    from tpu_aggcomm_torch.backends.slow_delay import slow_delay
+    from tpu_aggcomm_torch.cli import THETA_COMM_SIZES
+    from tpu_aggcomm_torch.core.methods import (METHODS, compile_method,
+                                                method_ids)
+    from tpu_aggcomm_torch.core.pattern import AggregatorPattern
+    from tpu_aggcomm_torch.faults import (RepairError, parse_fault,
+                                          repair_schedule)
+    from tpu_aggcomm_torch.native.fuse import fused_rep
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    readme1 = dict(README, m=1)
+    n1024 = dict(n=1024, a=64, d=2048, c=16, m=1)
+    rows = [delay_check(dev, readme1, "slow:r2*8"),
+            delay_check(dev, n1024, "slow:r2*8")]
+    csv = str(OUT_DIR / "faults.csv")
+    readme = ["-n", "32", "-a", "14", "-d", "2048"]
+    slow_delay.launches = 0
+    fused_rep.launches = 0
+    out = {"delay": rows}
+
+    # the delay's cost in a chained rep: healthy and factors 2, 4, 8
+    times = {}
+    with recorded_backends() as made:
+        for f in (1, 2, 4, 8):
+            run_cli([[*readme, "-m", "1", "-c", "3", "--backend",
+                      "torch_sim", "--chained", "--verify",
+                      "--results-csv", csv]
+                     + ([] if f == 1 else ["--fault", f"slow:r2*{f}"])])
+            times[f] = per_rep_us(made[-1])
+    series = [times[f] for f in (1, 2, 4, 8)]
+    check(all(a < b for a, b in zip(series, series[1:])),
+          f"chained us/rep does not rise with the slow factor: {times}")
+    per_iter = rows[0]["us_per_iteration"]
+    print(f"# delay timing (torch_sim --chained, README m=1): us/rep "
+          f"healthy {times[1]:.3f}, slow:r2*2 {times[2]:.3f}, *4 "
+          f"{times[4]:.3f}, *8 {times[8]:.3f}; the kernel "
+          f"{per_iter:.4f} us/iteration", flush=True)
+    out["delay_chained_us"] = times
+
+    # a repaired dead link: every round-structured method at the README
+    # shape (-m 0 with --fault is refused: TAM and the dense collectives
+    # have no op programs to repair), and at n=1024 in full width; 5>3
+    # carries no payload at n=1024, whose aggregators are multiples of 16
+    repaired, unrepairable = [], []
+    p = AggregatorPattern(32, 14, data_size=2048, comm_size=3)
+    for m in method_ids():
+        if METHODS[m].tam or compile_method(m, p).collective:
+            continue
+        argv = [*readme, "-m", str(m), "-c", "3", "--fault",
+                "deadlink:5>3", "--verify", "--results-csv", csv]
+        try:
+            repair_schedule(compile_method(m, p), parse_fault("deadlink:5>3"))
+        except RepairError:
+            refused(argv, "--fault: dead link 5>3")
+            unrepairable.append(m)
+            continue
+        run_cli([argv])
+        repaired.append(m)
+    refused([*readme, "-m", "0", "-c", "3", "--fault", "deadlink:5>3",
+             "--results-csv", csv],
+            "--fault does not support methods [5, 8, 15, 16]")
+    with recorded_backends() as made:
+        run_cli([["-n", "1024", "-m", "1", "-a", "64", "-d", "2048", "-c",
+                  "16", "--backend", "torch_sim", "--chained", "--verify",
+                  "--fault", "deadlink:5>16", "--results-csv", csv]])
+        out["deadlink_n1024_us"] = per_rep_us(made[-1])
+    print(f"# dead link repaired and verified: m={repaired} at the README "
+          f"shape (m={unrepairable} refused by the repair, as in the "
+          f"reference); n=1024 a=64 c=16 deadlink:5>16 --chained "
+          f"{out['deadlink_n1024_us']:.3f} us/rep", flush=True)
+    out.update(repaired=repaired, unrepairable=unrepairable)
+
+    # the named refusals
+    refused([*readme, "-m", "1", "-c", "3", "--backend", "cuda_fused",
+             "--fault", "deadlink:5>3", "--results-csv", csv],
+            "UnfusableScheduleError: repaired schedule")
+    refused([*readme, "-m", "1", "-c", "3", "--backend", "cuda_dma",
+             "--fault", "slow:r2*4", "--results-csv", csv],
+            "DmaFaultError: --fault slow:r2*4 is refused")
+
+    # sweep over the Theta grid
+    grid = list(THETA_COMM_SIZES)
+    sweeps = {}
+    for label, extra in (("m=1 torch_sim", ["-m", "1"]),
+                         ("m=2 torch_sim", ["-m", "2"]),
+                         ("m=1 cuda_fused", ["-m", "1", "--backend",
+                                             "cuda_fused"])):
+        before = fused_rep.launches
+        with recorded_backends() as made:
+            run_cli([["sweep", *readme, "-i", "1", *extra, "--chained",
+                      "--verify", "--results-csv", csv]])
+        sweeps[label] = sweep_line(f"{label} n=32 a=14 d=2048", made, grid)
+        if "cuda_fused" in label:
+            check(fused_rep.launches - before >= len(grid),
+                  "K2 did not run every cuda_fused sweep cell")
+    # n=1024: -c 1..8 (1024..128 rounds) cut for time, and -c 2048, 4096
+    # and 8192, which are the one-round schedule of -c 1024 and of the
+    # unthrottled cell (about 20 s a cell: 11000 chained reps of 1.2 ms)
+    wide = [c for c in grid if c >= 16 and c not in (2048, 4096, 8192)]
+    with recorded_backends() as made:
+        run_cli([["sweep", "-n", "1024", "-a", "64", "-d", "2048", "-m",
+                  "1", "-i", "1", "--comm-sizes",
+                  ",".join(map(str, wide)), "--chained", "--verify",
+                  "--results-csv", csv]])
+    sweeps["m=1 torch_sim n=1024"] = sweep_line(
+        "m=1 torch_sim n=1024 a=64 d=2048 (cut for time: -c 1, 2, 4, 8, "
+        "1024 to 128 rounds; -c 2048, 4096, 8192, the one-round schedule "
+        "of -c 1024 and unthrottled)", made, wide)
+    # the fault axis, then --resume skips every cell
+    fcsv = str(OUT_DIR / "faults_sweep.csv")
+    for path in Path(OUT_DIR).glob("faults_sweep.csv*"):
+        path.unlink()
+    axis = ["sweep", *readme, "-m", "1", "-i", "1", "--fault", "none",
+            "--fault", "deadlink:5>3", "--verify", "--results-csv", fcsv]
+    run_cli([axis])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run_cli([[*axis, "--resume"]])
+    got = buf.getvalue()
+    print(got, end="", flush=True)
+    skip = f"skipping already-recorded comm sizes {grid}"
+    check("RUN_OPTS" not in got and got.count(skip) == 2
+          and f"{skip} [fault deadlink:5>3]" in got,
+          "sweep --resume did not skip every recorded cell")
+    out["sweeps_us"] = sweeps
+    out["counts"] = {"slow_delay": slow_delay.launches,
+                     "fused_rep": fused_rep.launches}
+    print(f"# faults_sweep launches: {out['counts']}", flush=True)
+    check(slow_delay.launches > 0, "the delay kernel was not launched on "
+          "the faults_sweep path")
+    check(fused_rep.launches > 0, "K2 was not launched by the sweep")
     return out
 
 
@@ -886,19 +1164,26 @@ def main() -> int:
     k1 = timed("k1", phase_k1, dev)
     k2 = timed("k2", phase_k2, dev)
     k3 = timed("k3", phase_k3, dev)
+    # the line's bound is the bytes' (the larger of bytes and operations,
+    # and K3 moves rows, it computes nothing); the dependent wave chain,
+    # which binds in practice, stays beside it as chain_bound_ms
     k3_row = dict(k3["lockstep"], us_per_rep=k3["lockstep"]["ms"] * 1e3,
                   us_per_fence=k3["lockstep"]["us_per_wave"], concurrent={
                       k: v for k, v in k3["concurrent"].items()
-                      if k != "shape"})
+                      if k != "shape"},
+                  bound_ms=k3["lockstep"]["bytes_bound_ms"],
+                  bound_by="bytes",
+                  binding=k3["lockstep"]["bound_by"])
     main_path = timed("main_path", phase_main_path)
     counts = main_path["counts"]
+    faults = timed("faults_sweep", phase_faults_sweep, dev)
     print("measured phases " + json.dumps(main_path["measured"]))
     walls["main_path.measured"] = main_path["measured_s"]
     print(f"# phase walls (s): {json.dumps(walls)}")
     # no single PyTorch call computes any of these functions (a permuted
     # copy plus XOR; a round-fenced scatter of rows; a semaphore-
-    # synchronized step program), so library_ms is null; K1's and K2's
-    # bounds are bytes, K3's row says which of its two binds
+    # synchronized step program), so library_ms is null; K1's, K2's and
+    # K3's bounds are bytes (K3's "binding" names the wave chain)
     kernels = [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": counts[name],
@@ -912,6 +1197,18 @@ def main() -> int:
              "tpu_aggcomm/native/fuse.py:390", k2),
             ("dma_steps", "tpu_aggcomm_torch/csrc/dma_steps.cu",
              "tpu_aggcomm/backends/pallas_dma.py:420", k3_row))]
+    # the slow-rank delay replaces an XLA fori_loop, not a pallas_call;
+    # its row is the README shape's slow:r2*8, n=1024's under "large"
+    delay = faults["delay"]
+    kernels.append(dict(
+        {k: v for k, v in delay[0].items()},
+        name="slow_delay", route="cuda",
+        source="tpu_aggcomm_torch/csrc/slow_delay.cu",
+        replaces="tpu_aggcomm/backends/jax_sim.py:435",
+        launches=faults["counts"]["slow_delay"], library_ms=None,
+        matches_plain=all(r["max_abs_err"] == 0 for r in delay),
+        large=[{k: v for k, v in r.items() if k not in ("acc",)}
+               for r in delay[1:]]))
     print(json.dumps({"kernels": kernels}))
     print(f"# chip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     print(smi)

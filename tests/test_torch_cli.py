@@ -71,16 +71,21 @@ def test_cli_refuses_without_a_card(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("flags,needle", [
-    (["--fault", "slow:r1*2.0"], "--fault"),
+    (["--fault", "slow:r1*2.0", "--backend", "cuda_dma"], "--fault"),
     (["--xprof", "x"], "--xprof"),
 ])
 def test_unported_flags_raise_named_errors(flags, needle, tmp_path):
+    """--xprof is not ported. --fault runs since the faulted lowering was
+    ported (tests/test_torch_faults.py), except on the remote-DMA
+    transport, which has no faulted lowering and refuses it by name
+    (DmaFaultError, a NotPortedError) before any method runs."""
     argv = ["-n", "8", "-m", "1", "-a", "3", "-d", "256", "--device", "cpu",
             "--results-csv", str(tmp_path / "r.csv")] + flags
     with pytest.raises(SystemExit) as e:
         cli.main(argv)
-    assert str(e.value.code).startswith("NotPortedError: ")
+    assert re.match(r"(NotPortedError|DmaFaultError): ", str(e.value.code))
     assert needle in str(e.value.code)
+    assert not (tmp_path / "r.csv").exists()
 
 
 def _ref_and_port(tmp_path, capsys, ref_kw, argv):

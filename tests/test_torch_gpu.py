@@ -483,3 +483,101 @@ def test_chain_capture_failure_is_named(cuda):
     with pytest.raises(chained.ChainCaptureError, match="CUDA graph"):
         chained.graph_chain(rep, 1)(5)(send0)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The slow-rank delay kernel (csrc/slow_delay.cu) and the faulted rep.
+
+def _faulted_readme(spec, method=1, comm_size=3):
+    from tpu_aggcomm_torch.faults import parse_fault, repair_schedule
+    return repair_schedule(compile_method(method, AggregatorPattern(
+        32, 14, data_size=2048, comm_size=comm_size)), parse_fault(spec))
+
+
+@pytest.mark.parametrize("lanes", ["int32", "bytes"])
+@pytest.mark.parametrize("n", [32, 1024])
+def test_slow_delay_kernel_matches_plain(cuda, n, lanes):
+    """One launch for every slow rank: acc and the whole recv equal the
+    plain version's, on lanes with the sign bit set and near INT32_MAX
+    (row + i wraps), iteration counts of the README's slow:r2*8 and of
+    n=1024's."""
+    from tpu_aggcomm_torch.backends.slow_delay import (slow_delay,
+                                                       slow_delay_plain,
+                                                       slow_tables)
+    rng = np.random.default_rng(n)
+    w = 512 if lanes == "int32" else 30
+    if lanes == "int32":
+        send = rng.integers(-2**31, 2**31, size=(n, 3, w), dtype=np.int64)
+        send[1, 0, :4] = [2**31 - 1, 2**31 - 2, -2**31, -1]
+        send = torch.from_numpy(send.astype(np.int32))
+        recv = torch.from_numpy(rng.integers(-2**31, 2**31, size=(
+            n, 5, w), dtype=np.int64).astype(np.int32))
+    else:
+        send = torch.from_numpy(rng.integers(0, 256, size=(n, 3, w),
+                                             dtype=np.uint8))
+        recv = torch.from_numpy(rng.integers(0, 256, size=(n, 5, w),
+                                             dtype=np.uint8))
+    iters = np.zeros(n, dtype=np.int64)
+    iters[[1, 2, n - 1]] = [2464, 352, 14336]
+    want_recv = recv.clone()
+    want = slow_delay_plain(send, want_recv, slow_tables(iters, "cpu"))
+    tabs = slow_tables(iters, cuda)
+    got_recv = recv.to(cuda)
+    before = slow_delay.launches
+    got = slow_delay(send.to(cuda), got_recv, tabs)
+    torch.cuda.synchronize()
+    assert slow_delay.launches == before + 1
+    assert got.cpu().tolist() == want.tolist()
+    assert torch.equal(got_recv.cpu(), want_recv)
+    plain = slow_delay_plain(send.to(cuda), recv.to(cuda), tabs)
+    assert plain.cpu().tolist() == want.tolist()
+
+
+@pytest.mark.parametrize("iters", [5, 50, 53])
+def test_faulted_graph_chain_equals_the_eager_chain(cuda, iters):
+    """A repaired dead link (staging row, relay hops) and a slow rank in
+    one schedule: the graph chain ends in the eager chain's bytes and
+    counts one delay launch a rep (and one for the warm-up rep)."""
+    from tpu_aggcomm_torch.backends.slow_delay import slow_delay
+    s = _faulted_readme("slow:r2*4,deadlink:5>3")
+    b = TorchSimBackend(device="cuda")
+    rep, p = b.one_rep(s), s.pattern
+    _, n_recv = slot_shapes(p)
+    send0 = b._global_send(p, 0)
+    want = chained.eager_chain(rep, n_recv)(iters)(send0)
+    make_chain = b._chain_factory(rep, p)
+    for first in (True, False):
+        before = slow_delay.launches
+        got = make_chain(iters)(send0)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert slow_delay.launches - before == iters + first
+    cpu = TorchSimBackend("cpu")
+    ref = chained.eager_chain(cpu.one_rep(s), n_recv)(iters)(
+        cpu._global_send(p, 0))
+    np.testing.assert_array_equal(to_reference(got), to_reference(ref))
+
+
+def test_faulted_rep_on_the_card_equals_the_cpu_both_lowerings(cuda):
+    """-c 3 (unrolled) and -c 1 (padded): the faulted rep on the card is
+    byte-equal to the CPU's, which tests/test_torch_faults.py holds
+    against the reference; and it verifies."""
+    for c in (3, 1):
+        s = _faulted_readme("slow:r2*2,deadlink:5>3", comm_size=c)
+        send = dense_send_lanes(s.pattern, 0)
+        want = TorchSimBackend("cpu").one_rep(s)(from_reference(send, "cpu"))
+        got = TorchSimBackend("cuda").one_rep(s)(from_reference(send, cuda))
+        assert torch.equal(got.cpu(), want)
+        TorchSimBackend("cuda").run(s, verify=True)
+
+
+def test_delay_time_rises_with_the_factor(cuda):
+    """Chained per-rep time at the README shape rises strictly over slow
+    factors 1 (healthy), 2, 4 and 8: the delay runs in every rep."""
+    b = TorchSimBackend("cuda")
+    kw = dict(iters_small=20, iters_big=220, trials=3, windows=2)
+    times = [b.measure_per_rep(_readme(), **kw)]
+    for f in (2, 4, 8):
+        times.append(b.measure_per_rep(_faulted_readme(f"slow:r2*{f}"),
+                                       **kw))
+    assert all(a < b_ for a, b_ in zip(times, times[1:])), times

@@ -205,20 +205,20 @@ def test_default_device_is_cuda_and_refuses_without_a_card(monkeypatch):
 
 
 def test_unported_features_raise_named_errors():
-    """The faulted lowering is the one feature still to port: a
-    fault-injected schedule is refused by name, and its round prefixes
-    and measured phases are refused as the reference refuses them.
-    (Round prefixes, measured phases, profile_rounds and TAM run since
-    they were ported: tests/test_torch_phases.py, tests/test_torch_tam.py.)"""
+    """A fault-injected schedule runs since the faulted lowering was
+    ported (tests/test_torch_faults.py holds its arena against the
+    reference's); what the reference refuses on it stays refused by name:
+    its round prefixes and its measured phases. (Round prefixes, measured
+    phases, profile_rounds and TAM of healthy schedules run:
+    tests/test_torch_phases.py, tests/test_torch_tam.py.)"""
     s = compile_method(1, AggregatorPattern(8, 3, data_size=256,
                                             comm_size=2))
     b = TorchSimBackend("cpu")
     from dataclasses import replace
     faulted = replace(s, fault="slow:r1*2.0")
-    with pytest.raises(NotPortedError, match="fault"):
-        b.one_rep(faulted)
-    with pytest.raises(NotPortedError, match="ROADMAP"):
-        b.run(faulted)
+    assert b.one_rep(faulted) is not None
+    b.run(faulted, verify=True)
+    assert issubclass(NotPortedError, NotImplementedError)
     with pytest.raises(ValueError, match="truncation"):
         b._one_rep(faulted, upto=1)
     with pytest.raises(ValueError, match="fault-injected"):

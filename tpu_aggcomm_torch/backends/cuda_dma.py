@@ -45,7 +45,8 @@ package's own :class:`TorchSimBackend` on the same device, whose
 provenance is recorded: the reference hands TAM to ``jax_sim`` and the
 collectives to ``jax_ici``, which needs one device per rank and is not
 ported. This is a routing, not a fallback on failure. Fault-injected
-schedules raise :class:`NotPortedError`.
+schedules raise :class:`DmaFaultError` by name: the reference's
+lowering would drop the fault silently.
 """
 
 from __future__ import annotations
@@ -71,11 +72,11 @@ from tpu_aggcomm_torch.native.fuse import zero_runs_of
 from tpu_aggcomm_torch.tam.engine import TamMethod
 
 __all__ = ["CudaDmaBackend", "DmaTables", "DmaCapacityError",
-           "DmaProtocolError", "DmaTableError", "barrier_shifts",
-           "complete_permutation", "build_steps", "wave_profile",
-           "make_tables", "dma_tables", "check_step_tables", "capacity",
-           "check_capacity", "check_protocol", "send_arena", "dma_steps",
-           "dma_steps_plain", "TIMEOUT_S"]
+           "DmaFaultError", "DmaProtocolError", "DmaTableError",
+           "barrier_shifts", "complete_permutation", "build_steps",
+           "wave_profile", "make_tables", "dma_tables", "check_step_tables",
+           "capacity", "check_capacity", "check_protocol", "send_arena",
+           "dma_steps", "dma_steps_plain", "TIMEOUT_S"]
 
 #: how long one wait of a CTA may spin before it gives up and reports the
 #: step it was waiting for (a malformed program must not hang the card);
@@ -90,6 +91,16 @@ COUNTER_STRIDE = 32
 class DmaCapacityError(RuntimeError):
     """More ranks than CTAs that can be co-resident on the card: the
     step program would deadlock, so nothing is launched."""
+
+
+class DmaFaultError(NotPortedError):
+    """A fault-injected schedule on the remote-DMA transport. The step
+    program has no faulted lowering: the reference's
+    (``jax_ici.lower_schedule``, which ``pallas_dma`` runs) reads
+    ``data_edges()`` with no dead-edge mask, staging row or delay, so it
+    drops a slow rank or an unrepaired dead link silently and lands a
+    repair's relay hops in data slots. The port refuses instead of
+    reproducing that (ROADMAP.md, queue C)."""
 
 
 class DmaProtocolError(RuntimeError):
@@ -617,9 +628,11 @@ class CudaDmaBackend:
             return out
         if (getattr(schedule, "fault", None)
                 or getattr(schedule, "n_staging", 0)):
-            raise NotPortedError(
-                f"{self.name}: schedule {schedule.name!r} is fault-injected; "
-                f"the faulted lowering is not ported yet, see ROADMAP.md")
+            raise DmaFaultError(
+                f"{self.name}: schedule {schedule.name!r} is fault-injected "
+                f"(fault={schedule.fault!r}); the remote-DMA step program "
+                f"has no faulted lowering (the reference's drops the fault "
+                f"silently); run it on torch_sim")
 
         p = schedule.pattern
         tabs = self.tables(schedule)

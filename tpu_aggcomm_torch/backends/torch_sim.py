@@ -34,8 +34,13 @@ reference's XLA code, not a Pallas kernel, so it stays torch indexing;
 the fused backend (:mod:`tpu_aggcomm_torch.backends.cuda_fused`) is the
 one-kernel lowering.
 
-Not ported yet: fault-injected schedules raise :class:`NotPortedError`
-(ROADMAP.md, queue A item 7).
+Fault-injected schedules (``faults/``) take their own lowering,
+:meth:`TorchSimBackend._one_rep_faulted`, the port of the reference's:
+the recv arena grows by the relay staging rows of a dead-link repair,
+a relay's forward hop gathers from its staging row of recv, the chan-0
+edges an UNREPAIRED fault names drop out, and each slow rank runs the
+delay loop of kernel ``csrc/slow_delay.cu``
+(:mod:`tpu_aggcomm_torch.backends.slow_delay`) after the rounds.
 """
 
 from __future__ import annotations
@@ -49,10 +54,13 @@ import torch
 from tpu_aggcomm_torch.backends.lanes import (from_reference, lane_layout,
                                               lanes_to_bytes, to_lanes,
                                               to_reference, wrap_i32)
+from tpu_aggcomm_torch.backends.slow_delay import slow_delay, slow_tables
 from tpu_aggcomm_torch.core.pattern import AggregatorPattern, Direction
 from tpu_aggcomm_torch.core.schedule import (Schedule, barrier_rounds_of,
                                              schedule_shape_key)
 from tpu_aggcomm_torch.device import resolve_device, sync
+from tpu_aggcomm_torch.faults.inject import dead_edge_mask, slow_iter_table
+from tpu_aggcomm_torch.faults.spec import parse_fault
 from tpu_aggcomm_torch.harness.attribution import (attribute_measured_split,
                                                    attribute_round_splits,
                                                    attribute_rounds,
@@ -163,6 +171,49 @@ def _scatter_tables(schedule: Schedule, n_recv_slots: int):
                        np.concatenate([ds_, np.full(pad, n_recv_slots,
                                                     dtype=np.int64)])))
     return padded, nbars
+
+
+def _faulted_tables(schedule: Schedule, n_recv_slots: int):
+    """The faulted lowering's tables, as the reference builds them
+    (``jax_sim.py:400-430``): the extended edge table with the chan-0
+    edges an unrepaired fault names masked out, one entry per round
+    ``(round id, srcs, sslots, dsts, dslots, from_stage)``. A relay hop's
+    staging slots are offset past the pattern recv slots (rows
+    ``n_recv_slots .. F-1``; F, the trash row, follows them). Also the
+    barrier counts, F, and the per-rank delay-loop iterations, whose
+    depth is the largest round id + 1 of the masked table, relay rounds
+    included."""
+    p = schedule.pattern
+    F = n_recv_slots + int(getattr(schedule, "n_staging", 0))
+    spec = parse_fault(getattr(schedule, "fault", None))
+    ext = schedule.data_edges_ext()
+    ext = ext[dead_edge_mask(ext, spec)]
+    barrier_rounds = barrier_rounds_of(schedule)
+    rounds = []
+    n_rounds = int(ext[:, 4].max()) + 1 if len(ext) else 0
+    for r in range(n_rounds):
+        sel = ext[ext[:, 4] == r]
+        if len(sel) == 0:
+            continue
+        from_stage = (sel[:, 6] & 1) != 0
+        to_stage = (sel[:, 6] & 2) != 0
+        rounds.append((
+            r,
+            sel[:, 0].astype(np.int64),
+            np.where(from_stage, n_recv_slots + sel[:, 2],
+                     sel[:, 2]).astype(np.int64),
+            sel[:, 1].astype(np.int64),
+            np.where(to_stage, n_recv_slots + sel[:, 3],
+                     sel[:, 3]).astype(np.int64),
+            from_stage))
+    orphans = set(barrier_rounds) - {r for r, *_ in rounds}
+    if orphans:
+        raise ValueError(
+            f"schedule {schedule.name!r} has barrier-only rounds "
+            f"{sorted(orphans)} with no data edges; the torch_sim round "
+            f"lowering cannot represent a standalone fence")
+    slow = slow_iter_table(spec, p.nprocs, max(n_rounds, 1))
+    return rounds, barrier_rounds, F, slow
 
 
 def _dense_tables(p: AggregatorPattern, n_recv_slots: int):
@@ -333,9 +384,7 @@ class TorchSimBackend:
                     "fault-injected schedules (the injected delay work "
                     "and relay rounds are not part of the healthy "
                     "prefix family)")
-            raise NotPortedError(
-                f"torch_sim: schedule {schedule.name!r} is fault-injected; "
-                f"the faulted lowering is not ported yet, see ROADMAP.md")
+            return self._one_rep_faulted(schedule)
         if isinstance(schedule, TamMethod):
             return self._tam_rep(schedule)
         if not isinstance(schedule, Schedule):
@@ -373,6 +422,81 @@ class TorchSimBackend:
             recv = self._arena(p)
             for tab, nbar in zip(kept, nbars):
                 _apply_round(send, recv, *tab, nbar, n_recv_slots)
+            return recv
+
+        return rep
+
+    def _one_rep_faulted(self, schedule):
+        """The faulted-schedule lowering, the port of the reference's
+        ``_one_rep_faulted`` (``jax_sim.py:367-509``): the same round
+        structure with three additions over :meth:`_one_rep`.
+
+        - **Staging rows.** The recv arena is ``(n, F + 1, w)``, ``F =
+          n_recv_slots + S``: the S relay staging rows of a dead-link
+          repair sit between the data rows and the trash row, which both
+          lowerings pad to and barrier tokens land in (the tokens still
+          sum only the data rows' lane 0). A relay's forward hop
+          (``from_stage``) gathers the source rank's staging row of recv,
+          not send: the round's values are gathered (both sources) before
+          its scatter, and the hop that filled the row ran in an earlier
+          round.
+        - **Dead-edge masks.** The chan-0 edges an unrepaired fault names
+          drop out, so ``--verify`` fails: the injection working.
+        - **Slow ranks.** After the rounds, one launch of the delay kernel
+          runs every slow rank's loop over its live send row and adds its
+          provably zero result to ``recv[r, 0, 0]``
+          (:func:`~tpu_aggcomm_torch.backends.slow_delay.slow_delay`).
+
+        The lowering (padded tables under :func:`_scan_lowered`, else the
+        rounds as they are) is the reference's: a padded round's pad
+        entries gather ``send[0, 0]`` into rank 0's row F. Each round
+        stays its own launch sequence, and ``run()`` hands verification
+        the data rows only."""
+        p = schedule.pattern
+        n = p.nprocs
+        _, n_recv_slots = slot_shapes(p)
+        _, dt, w = lane_layout(p.data_size)
+        dev = self.device
+        rounds, barrier_rounds, F, slow = _faulted_tables(schedule,
+                                                          n_recv_slots)
+        tabs = [(srcs, ss, dsts, ds_) for (_r, srcs, ss, dsts, ds_, _fm)
+                in rounds]
+        nbars = [barrier_rounds.get(r, 0) for (r, *_rest) in rounds]
+        fms = [fm for (*_rest, fm) in rounds]
+        if _scan_lowered(tabs, barrier_rounds):
+            width = max(len(srcs) for (srcs, *_rest) in tabs)
+
+            def pad(a, value):
+                return np.concatenate(
+                    [a, np.full(width - len(a), value, dtype=a.dtype)])
+
+            tabs = [(pad(srcs, 0), pad(ss, 0), pad(dsts, 0), pad(ds_, F))
+                    for (srcs, ss, dsts, ds_) in tabs]
+            fms = [pad(fm, False) for fm in fms]
+        kept = []
+        for (srcs, ss, dsts, ds_), fm in zip(tabs, fms):
+            # the send gather reads every edge not from_stage; the staging
+            # gather overwrites the from_stage positions, so neither reads
+            # a row outside its own arena
+            staged = np.flatnonzero(fm)
+            kept.append((self._idx(srcs), self._idx(np.where(fm, 0, ss)),
+                         self._idx(dsts), self._idx(ds_),
+                         (self._idx(staged), self._idx(srcs[staged]),
+                          self._idx(ss[staged])) if len(staged) else None))
+        delay = slow_tables(slow, dev)
+
+        def rep(send):
+            recv = torch.zeros((n, F + 1, w), dtype=dt, device=dev)
+            for (srcs, ss, dsts, ds_, staged), nbar in zip(kept, nbars):
+                vals = send[srcs, ss]
+                if staged is not None:
+                    pos, s_src, s_row = staged
+                    vals[pos] = recv[s_src, s_row]
+                recv[dsts, ds_] = vals
+                for _ in range(nbar):
+                    recv[:, F, 0] = _barrier_token(recv, n_recv_slots)
+            if delay is not None:
+                slow_delay(send, recv, delay)
             return recv
 
         return rep

@@ -30,7 +30,8 @@ CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC.parents[1] / "build" / "torch_kernels"
 
 #: the kernel sources in this directory, one object each
-SOURCES = ("exchange.cu", "fused_rep.cu", "dma_steps.cu", "signal_probe.cu")
+SOURCES = ("exchange.cu", "fused_rep.cu", "dma_steps.cu", "signal_probe.cu",
+           "slow_delay.cu")
 #: headers the sources include; part of the library's hash
 HEADERS = ("sync.cuh",)
 

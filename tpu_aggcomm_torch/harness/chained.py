@@ -128,8 +128,9 @@ def _kernel_wrappers():
     ``.launches`` (and K1 its reps in ``.reps``)."""
     from tpu_aggcomm_torch.backends.cuda_dma import dma_steps
     from tpu_aggcomm_torch.backends.cuda_local import exchange
+    from tpu_aggcomm_torch.backends.slow_delay import slow_delay
     from tpu_aggcomm_torch.native.fuse import fused_rep
-    return (fused_rep, dma_steps, exchange)
+    return (fused_rep, dma_steps, exchange, slow_delay)
 
 
 def _counters() -> dict:
@@ -167,7 +168,8 @@ def graph_chain(rep, n_recv_slots: int):
     A wrapper's Python runs only while a graph is captured, when nothing
     launches; so the launch counters are restored after each capture and
     every replay adds what one pass of its block launches (one launch of
-    K2 a rep for ``cuda_fused``). A capture that fails raises
+    K2 a rep for ``cuda_fused``, one of the slow-rank delay a faulted rep
+    with a slow rank). A capture that fails raises
     :class:`ChainCaptureError`."""
     state: dict = {"graphs": {}}
 

@@ -5,27 +5,34 @@ reduction, console/CSV reporting, optional verification.
 The port of ``tpu_aggcomm/harness/runner.py``, trimmed to the ``run``
 path: the console block and ``results.csv`` rows are byte-identical in
 format to the reference's, and the upfront guards of ``--chained``,
-``--profile-rounds`` and ``--measured-phases`` refuse what the
-reference's refuse, before any method runs. Fault injection and the
-profiler cross-check are not ported yet and raise
-:class:`NotPortedError` by name; the resilience layer and the run ledger
-are not ported.
+``--profile-rounds``, ``--measured-phases`` and ``--fault`` refuse what
+the reference's refuse, before any method runs. ``--fault`` repairs
+every method before any method runs (``faults/repair.py``), and the
+backends realize what is left of the fault (``faults/inject.py``). The
+remote-DMA transport (:class:`DmaFaultError`) and the ``native``
+runtime refuse a faulted run by name, where the reference's would drop
+the fault silently. The profiler cross-check (``--xprof``) is not
+ported yet and raises :class:`NotPortedError`; the retry policy, the
+soft deadlines and the run ledger's compile records are not ported.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-from tpu_aggcomm_torch.backends.registry import get_backend
+from tpu_aggcomm_torch.backends.cuda_dma import DmaFaultError
+from tpu_aggcomm_torch.backends.registry import HOST_BACKENDS, get_backend
 from tpu_aggcomm_torch.backends.torch_sim import NotPortedError
 from tpu_aggcomm_torch.core.methods import METHODS, compile_method, method_ids
 from tpu_aggcomm_torch.core.pattern import AggregatorPattern
 from tpu_aggcomm_torch.core.schedule import schedule_shape_key
+from tpu_aggcomm_torch.faults import parse_fault, repair_schedule
 from tpu_aggcomm_torch.harness.chained import MAX_MEASURED_ROUNDS
 from tpu_aggcomm_torch.harness.report import (append_provenance,
                                               config_banner, save_all_timing,
                                               summarize_results)
 from tpu_aggcomm_torch.harness.timer import max_reduce
+from tpu_aggcomm_torch.resilience import check_boundary
 
 __all__ = ["ExperimentConfig", "run_experiment"]
 
@@ -57,15 +64,18 @@ class ExperimentConfig:
     #                                differencing), TAM hops; single-round
     #                                schedules take the post/deliver split
     xprof: str | None = None       # not ported yet
-    fault: str | None = None       # not ported yet
+    fault: str | None = None     # --fault SPEC: fault-injection scenario
+    #                              ("slow:rR*F,deadlink:S>D,deadagg:aI");
+    #                              schedules are repaired (faults/repair.py)
+    #                              before dispatch and backends realize the
+    #                              injected degradation (faults/inject.py)
 
 
 def _refuse_unported(cfg: ExperimentConfig) -> None:
-    for flag, on in (("--fault", cfg.fault), ("--xprof", cfg.xprof)):
-        if on:
-            raise NotPortedError(
-                f"{flag} is not ported to tpu_aggcomm_torch yet; see "
-                f"ROADMAP.md (queue A) — run it on the reference package")
+    if cfg.xprof:
+        raise NotPortedError(
+            "--xprof is not ported to tpu_aggcomm_torch yet; see "
+            "ROADMAP.md (queue A) — run it on the reference package")
 
 
 def run_experiment(cfg: ExperimentConfig, *, out=None) -> list[dict]:
@@ -100,6 +110,39 @@ def run_experiment(cfg: ExperimentConfig, *, out=None) -> list[dict]:
             f"--chained is not supported on --backend {cfg.backend} (the "
             f"remote-DMA step program is timed whole per rep); use "
             f"--backend torch_sim or cuda_fused for serial-chained timing")
+    if cfg.chained and cfg.backend in HOST_BACKENDS:
+        # as the reference: the host oracles time each rep directly
+        raise ValueError(
+            f"--chained requires --backend torch_sim or cuda_fused "
+            f"(serial-chained on-device measurement); {cfg.backend} is a "
+            f"host oracle")
+    fspec = None
+    if cfg.fault:
+        fspec = parse_fault(cfg.fault)
+        if fspec.empty:
+            fspec = None
+    if fspec is not None and cfg.measured_phases:
+        raise ValueError(
+            "--measured-phases is not supported with --fault (round-prefix "
+            "truncation would replay the injected delay once per prefix); "
+            "use --chained timing for faulted runs")
+    if fspec is not None and cfg.backend == "native":
+        raise NotPortedError(
+            f"--fault {fspec.canonical()} is refused on --backend native: "
+            f"the C++ rank runtime (copied from the reference) has no "
+            f"faulted lowering. It ignores a schedule's relay channels, "
+            f"staging rows and slow ranks, so it would drop a slow rank "
+            f"silently and misdeliver a repaired dead link. Run faulted "
+            f"schedules on local or torch_sim")
+    if fspec is not None and cfg.backend in ("cuda_dma", "cuda_dma_conc"):
+        raise DmaFaultError(
+            f"--fault {fspec.canonical()} is refused on --backend "
+            f"{cfg.backend}: the remote-DMA step program has no faulted "
+            f"lowering. The reference's (jax_ici.lower_schedule, which "
+            f"pallas_dma runs) reads data_edges() with no dead-edge mask, "
+            f"staging row or delay, so it would drop a slow rank or an "
+            f"unrepaired dead link silently and land a repair's relay hops "
+            f"in data slots. Run faulted schedules on torch_sim")
     methods = method_ids() if cfg.method == 0 else [cfg.method]
     for m in methods:
         if m not in METHODS:
@@ -134,6 +177,22 @@ def run_experiment(cfg: ExperimentConfig, *, out=None) -> list[dict]:
                 f"{unfusable} (TAM's staged engine and the dense "
                 f"collectives have no throttle rounds to fuse); run them "
                 f"on torch_sim")
+    if fspec is not None:
+        # repair BEFORE any method runs: an unrepairable method in a
+        # run-all sweep must fail upfront, not mid-run with a partial CSV
+        # (the reference's compile-ledger records of the repair wait for
+        # the port's run ledger, ROADMAP.md queue A item 4)
+        bad = [m for m in methods
+               if METHODS[m].tam or compiled[m].collective]
+        if bad:
+            raise ValueError(
+                f"--fault does not support methods {bad} (TAM's staged "
+                f"engine and the dense collectives have no round-"
+                f"structured op programs to repair); pick round-structured "
+                f"methods with -m")
+        for m in methods:
+            compiled[m] = repair_schedule(compiled[m], fspec,
+                                          barrier_type=cfg.barrier_type)
     if cfg.measured_phases:
         # fail upfront: the truncation measurement exists for
         # round-structured schedules and for TAM's 3-hop relay on
@@ -163,6 +222,9 @@ def run_experiment(cfg: ExperimentConfig, *, out=None) -> list[dict]:
     records = []
     for i in range(cfg.iters):
         for m in methods:
+            # a deferred SIGINT/SIGTERM (resilience/watchdog) lands HERE,
+            # between dispatches — never mid-kernel
+            check_boundary(f"m{m}:i{i}")
             spec = METHODS[m]
             sched = compiled[m]
             kwargs = {}
@@ -190,7 +252,10 @@ def run_experiment(cfg: ExperimentConfig, *, out=None) -> list[dict]:
                 "iter": i, "method": m, "name": spec.name,
                 "timer0": timers[0], "max_timer": max_timer,
                 "backend_executed": executed, "phase_source": phases,
+                # the journal identity of what actually ran (fault variant
+                # included) — sweep --resume records these per cell
                 "shape_key": str(schedule_shape_key(sched)),
+                "fault": getattr(sched, "fault", None),
             })
         print("| --------------------------------------", file=out)
     return records
