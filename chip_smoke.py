@@ -75,14 +75,28 @@ first failure (no phase's failure is caught):
    at n=1024 a=64 c=16 ``--chained --verify``; the refusals of
    ``cuda_fused`` and ``cuda_dma`` with a fault; ``sweep`` over the Theta
    grid (m=1 and m=2 on ``torch_sim``, m=1 on ``cuda_fused``, m=1 at
-   n=1024 from ``-c 16`` up, less the one-round cells 2048-8192 that
-   repeat ``-c 1024``), each cell's chained per-rep time on a
+   n=1024 at ``-c`` 16, 64, 1024 and unthrottled, the rest cut for
+   time), each cell's chained per-rep time on a
    ``# sweep`` line; and ``sweep --fault none --fault deadlink:5>3``
    followed by a ``--resume`` that must skip every cell;
-7. a ``measured phases {...}`` line (each decomposition in
-   microseconds), each phase's wall time, a ``{"kernels": [...]}`` line,
-   the ``nvidia-smi`` line again, and as the last line ``{"ok": true,
-   "device": {...}}``.
+7. slice 7's path (``tam_obs``), K2's launch count zeroed first and
+   read at its end: ``tam`` on every host engine at n=64 ``-p 8 -b 16``
+   (``-t`` 0 and 3, each ``| correctness: PASSED``); the ``sim`` engine
+   on the card at n=16384 ``-p 64 -t 0`` and n=4096 ``-p 64 -t 3`` (n cut
+   from 16384: ``-t 3`` is n^2 messages), ``--chained -k 3`` and
+   per-dispatch ``-k 3``, each verified, with its host table-build
+   seconds and its bytes a rep beside the HBM bound, and its graph chain
+   against the eager chain at 5, 50 and 53 reps; ``run --trace`` on
+   ``torch_sim --chained`` at the README shape (a Perfetto slice per
+   round, the events re-aggregating float-exactly to the timer columns)
+   and ``sweep --trace`` over ``-c`` 1, 3 and unthrottled; ``run
+   --xprof`` on ``cuda_fused`` and ``torch_sim``, each report read from
+   the card's device span (``cupti-device-span``), with the device busy
+   share of the profiled rep;
+8. a ``measured phases {...}`` line (each decomposition in
+   microseconds), the device busy shares, each phase's wall time, a
+   ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and as
+   the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -761,6 +775,10 @@ def phase_main_path() -> dict:
     record = json.loads(bench_out.strip().splitlines()[-1])
     check("error" not in record and record["platform"] == "gpu",
           f"bench record: {record}")
+    check(record.get("manifest", {}).get("device_kind")
+          == record["device_kind"] and record.get("compile_seconds", 0) > 0,
+          "the bench record lacks the run ledger's manifest and "
+          "compile_seconds")
     counts = {"exchange": exchange.launches, "fused_rep": fused_rep.launches}
     reps = {"exchange": exchange.reps, "fused_rep": fused_rep.launches}
     print(f"# main-path launches: {counts}", flush=True)
@@ -999,8 +1017,8 @@ def phase_faults_sweep(dev) -> dict:
     strictly), the repaired dead link on every round-structured method at
     the README shape and at n=1024 (chained, full width), the named
     refusals, and sweep over the Theta grid: m=1 and m=2 on torch_sim,
-    m=1 on cuda_fused (K2 a cell), m=1 at n=1024 from -c 16 up, and the
-    fault axis with --resume. The delay's and K2's launch counts are
+    m=1 on cuda_fused (K2 a cell), m=1 at n=1024 at -c 16, 64, 1024 and
+    unthrottled, and the fault axis with --resume. The delay's and K2's launch counts are
     zeroed after the kernel check and read at the end."""
     from tpu_aggcomm_torch.backends.slow_delay import slow_delay
     from tpu_aggcomm_torch.cli import THETA_COMM_SIZES
@@ -1097,19 +1115,20 @@ def phase_faults_sweep(dev) -> dict:
         if "cuda_fused" in label:
             check(fused_rep.launches - before >= len(grid),
                   "K2 did not run every cuda_fused sweep cell")
-    # n=1024: -c 1..8 (1024..128 rounds) cut for time, and -c 2048, 4096
-    # and 8192, which are the one-round schedule of -c 1024 and of the
-    # unthrottled cell (about 20 s a cell: 11000 chained reps of 1.2 ms)
-    wide = [c for c in grid if c >= 16 and c not in (2048, 4096, 8192)]
+    # n=1024, cut for time to four cells (about 20 s a cell: 11000
+    # chained reps of 1.2-1.5 ms): 64, 16 and 1 rounds and unthrottled;
+    # -c 1..8 are 1024..128 rounds, -c 2048..8192 the one-round schedule
+    # of -c 1024
+    wide = [16, 64, 1024, 999_999_999]
     with recorded_backends() as made:
         run_cli([["sweep", "-n", "1024", "-a", "64", "-d", "2048", "-m",
                   "1", "-i", "1", "--comm-sizes",
                   ",".join(map(str, wide)), "--chained", "--verify",
                   "--results-csv", csv]])
     sweeps["m=1 torch_sim n=1024"] = sweep_line(
-        "m=1 torch_sim n=1024 a=64 d=2048 (cut for time: -c 1, 2, 4, 8, "
-        "1024 to 128 rounds; -c 2048, 4096, 8192, the one-round schedule "
-        "of -c 1024 and unthrottled)", made, wide)
+        "m=1 torch_sim n=1024 a=64 d=2048 (cut for time to -c 16, 64, "
+        "1024 and unthrottled: -c 1, 2, 4, 8, 32, 128, 256, 512 and the "
+        "one-round 2048, 4096, 8192 dropped)", made, wide)
     # the fault axis, then --resume skips every cell
     fcsv = str(OUT_DIR / "faults_sweep.csv")
     for path in Path(OUT_DIR).glob("faults_sweep.csv*"):
@@ -1133,6 +1152,239 @@ def phase_faults_sweep(dev) -> dict:
     check(slow_delay.launches > 0, "the delay kernel was not launched on "
           "the faults_sweep path")
     check(fused_rep.launches > 0, "K2 was not launched by the sweep")
+    return out
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """The ``(flat, times)`` of every proxy route the ``tam`` CLI runs
+    while the block runs, in order (the printed "min rep" keeps six
+    decimals of a second; these are the full-precision samples)."""
+    from tpu_aggcomm_torch.tam import workload_engines
+
+    made = []
+    real = workload_engines.proxy_route
+
+    def recording(*args, **kw):
+        made.append(real(*args, **kw))
+        return made[-1]
+
+    workload_engines.proxy_route = recording
+    try:
+        yield made
+    finally:
+        workload_engines.proxy_route = real
+
+
+def cli_out(argv) -> str:
+    """Run one CLI command, echo its output and return it."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run_cli([argv])
+    print(buf.getvalue(), end="", flush=True)
+    return buf.getvalue()
+
+
+def sim_chain_check(dev) -> None:
+    """The sim route's chain on the card: the graph chain's end state
+    (CUDA graph replays, the device rep counter) against the eager chain
+    on the card and on the CPU, at 5, 50 and 53 reps, n=256 ``-p 64 -t
+    0``."""
+    import torch
+
+    from tpu_aggcomm_torch.core.topology import static_node_assignment
+    from tpu_aggcomm_torch.core.workload import initialize_setting
+    from tpu_aggcomm_torch.harness.chained import eager_chain, graph_chain
+    from tpu_aggcomm_torch.tam.workload_engines import proxy_route_program
+
+    na = static_node_assignment(256, 64, 0)
+    wl = initialize_setting(na, 16, 0)
+    x0, _, step = proxy_route_program(wl, na, dev)
+    c0, _, cstep = proxy_route_program(wl, na, "cpu")
+    make = graph_chain(None, step=step)
+    for iters in (5, 50, 53):
+        got = make(iters)(x0)
+        want = eager_chain(None, step=step)(iters)(x0)
+        cpu = eager_chain(None, step=cstep)(iters)(c0)
+        check(torch.equal(got, want) and torch.equal(got.cpu(), cpu),
+              f"sim graph chain != eager chain at {iters} reps")
+    print("# sim chain: graph replays equal the eager chain (card and "
+          "CPU) at 5, 50, 53 reps, n=256 -p 64 -t 0", flush=True)
+
+
+def sim_cell(label: str, argv: list, cut: str) -> dict:
+    """One full-width ``tam --engine sim`` cell through the CLI, chained
+    and per-dispatch ``-k 3``: verified each time (the CLI's vectorised
+    check), the chained and per-dispatch microseconds a rep, the host
+    table-build seconds, and the route's bytes a rep beside its HBM
+    bound."""
+    from tpu_aggcomm_torch.obs import ledger
+
+    out = {}
+    for mode, extra in (("chained", ["--chained", "-k", "3"]),
+                        ("dispatch", ["-k", "3"])):
+        with recorded_routes() as made:
+            text = cli_out(["tam", *argv, "--engine", "sim", *extra])
+        check("| correctness: PASSED" in text and len(made) == 1,
+              f"tam sim {label} {mode} did not verify")
+        flat, times = made[0]
+        build = [r for r in ledger.compile_records()
+                 if r["kind"] == "table-build"][-1]
+        out[f"{mode}_us"] = [t * 1e6 for t in times]
+        out[f"{mode}_table_s"] = build["seconds"]
+        n_bytes = flat.numel()
+        del made, flat
+    # three hops of int32 table read + byte read + byte write, then the
+    # chain's XOR (read + write)
+    out["bytes_per_rep"] = bytes_rep = 3 * (4 + 1 + 1) * n_bytes + 2 * n_bytes
+    out["bound_us"] = bytes_rep / HBM_BYTES_PER_S * 1e6
+    out["hop_bytes"] = n_bytes
+    print(f"# tam sim {label}{cut}: {n_bytes} bytes a hop; chained "
+          f"{out['chained_us'][0]:.3f} us/rep, per-dispatch -k 3 "
+          f"{', '.join(f'{t:.3f}' for t in out['dispatch_us'])} us; "
+          f"tables {out['chained_table_s']:.3f} / "
+          f"{out['dispatch_table_s']:.3f} s on the host; "
+          f"{bytes_rep} bytes a rep, HBM bound {out['bound_us']:.3f} us",
+          flush=True)
+    return out
+
+
+def phase_tam_obs(dev) -> dict:
+    """Slice 7's path, through the CLI, K2's launch count zeroed first
+    and read at the end: ``tam`` on every host engine at n=64 ``-p 8``
+    (``-t`` 0 and 3), the ``sim`` engine at full width on the card
+    (n=16384 ``-p 64 -t 0`` and n=4096 ``-p 64 -t 3``, chained and
+    per-dispatch, each verified) and its graph chain against the eager
+    chain; ``run --trace`` on torch_sim (the Perfetto file has a slice
+    per round, the events re-aggregate float-exactly to the timer
+    columns) and ``sweep --trace``; ``run --xprof`` on cuda_fused and
+    torch_sim, each report from the card's device span, with the device
+    busy share of the profiled rep."""
+    from tpu_aggcomm_torch.core.methods import compile_method
+    from tpu_aggcomm_torch.core.pattern import AggregatorPattern
+    from tpu_aggcomm_torch.native.fuse import fused_rep
+    from tpu_aggcomm_torch.obs import ledger
+    from tpu_aggcomm_torch.obs.perfetto import RANKS_PID
+    from tpu_aggcomm_torch.obs.trace import (aggregate_run, load_events,
+                                             summarize_trace)
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    fused_rep.launches = 0
+    out = {}
+
+    # the host engines; at -t 3 every rank is a destination, and the
+    # shared window needs each to be a local aggregator: -c 8 there
+    for t in (0, 3):
+        for engine in ("proxy", "local_agg", "shared", "benchmark",
+                       "native", "native2", "native3"):
+            co = "8" if t == 3 and engine in ("shared", "native3") else "2"
+            text = cli_out(["tam", "-n", "64", "-p", "8", "-b", "16", "-t",
+                            str(t), "-c", co, "--mode", "1", "--engine",
+                            engine])
+            check("| correctness: PASSED" in text,
+                  f"tam --engine {engine} -t {t} did not verify")
+    print("# tam host engines verified at n=64 -p 8 -b 16, -t 0 and 3 "
+          "(-c 2 --mode 1; -c 8 for shared and native3 at -t 3)",
+          flush=True)
+
+    # the sim engine at full width on the card
+    sim_chain_check(dev)
+    out["sim_t0"] = sim_cell(
+        "n=16384 -p 64 -b 16 -t 0",
+        ["-n", "16384", "-p", "64", "-b", "16", "-t", "0"], "")
+    out["sim_t3"] = sim_cell(
+        "n=4096 -p 64 -b 16 -t 3",
+        ["-n", "4096", "-p", "64", "-b", "16", "-t", "3"],
+        " (n cut from 16384: -t 3 is n^2 messages)")
+
+    # --trace on run and sweep
+    prefix = str(OUT_DIR / "readme")
+    csv = str(OUT_DIR / "obs.csv")
+    readme = ["-n", "32", "-m", "1", "-a", "14", "-d", "2048"]
+    text = cli_out([*readme, "-c", "3", "--backend", "torch_sim",
+                    "--chained", "--verify", "--trace", prefix,
+                    "--results-csv", csv])
+    jsonl, pft = prefix + ".trace.jsonl", prefix + ".trace.json"
+    check(Path(jsonl).exists() and Path(pft).exists(),
+          "run --trace wrote no trace pair")
+    with open(pft) as fh:
+        chrome = json.load(fh)
+    seen = {e["args"]["round"] for e in chrome["traceEvents"]
+            if e.get("ph") == "X" and e.get("pid") == RANKS_PID}
+    sched = compile_method(1, AggregatorPattern(32, 14, data_size=2048,
+                                                comm_size=3))
+    rounds = {int(e[4]) for e in sched.data_edges()}
+    check(rounds <= seen, f"trace slices cover rounds {sorted(seen - {None})}"
+          f", the schedule has {sorted(rounds)}")
+    events = load_events(jsonl)
+    timers = {e["rank"]: {k: e[k] for k in ("post", "send_wait",
+                                             "recv_wait", "barrier",
+                                             "total")}
+              for e in events if e["ev"] == "timer" and e["run"] == 0}
+    check(aggregate_run(events, 0) == timers and len(timers) == 32,
+          "the trace does not re-aggregate to the timer columns")
+    max_total = max(t["total"] for t in timers.values())
+    check(f"| All to many max total time = {max_total:.6f}" in text,
+          "the traced timer columns are not the printed ones")
+    check("run 0:" in summarize_trace(jsonl), "summarize_trace failed")
+    names = {e["name"] for e in events if e["ev"] == "instant"}
+    check({"chained.trial", "chained.samples", "ledger.compile"} <= names,
+          f"trace instants: {sorted(names)}")
+    captures = [e["args"] for e in events if e["ev"] == "instant"
+                and e["name"] == "ledger.compile"
+                and e["args"].get("kind") == "graph-capture"]
+    check(captures, "no graph-capture record in the trace")
+    print(f"# run --trace: {len(rounds)} rounds, each with slices; "
+          f"{len(events)} events re-aggregate float-exactly to 32 ranks' "
+          f"timer columns; graph captures "
+          f"{[(c['reps'], round(c['seconds'], 4)) for c in captures]}",
+          flush=True)
+    prefix2 = str(OUT_DIR / "sweep")
+    cli_out(["sweep", *readme, "-i", "1", "--comm-sizes", "1,3,999999999",
+             "--verify", "--trace", prefix2, "--results-csv", csv])
+    events2 = load_events(prefix2 + ".trace.jsonl")
+    runs = [e for e in events2 if e["ev"] == "run"]
+    check(Path(prefix2 + ".trace.json").exists() and
+          [r["comm_size"] for r in runs] == [1, 3, 999999999],
+          f"sweep --trace covered {[r['comm_size'] for r in runs]}")
+    for r in runs:
+        timers = {e["rank"]: {k: e[k] for k in ("post", "send_wait",
+                                                 "recv_wait", "barrier",
+                                                 "total")}
+                  for e in events2 if e["ev"] == "timer"
+                  and e["run"] == r["id"]}
+        check(aggregate_run(events2, r["id"]) == timers,
+              f"sweep trace run {r['id']} does not re-aggregate")
+    print("# sweep --trace: one trace pair over -c 1, 3, 999999999, each "
+          "cell re-aggregating float-exactly", flush=True)
+
+    # --xprof on cuda_fused and torch_sim: the device span, and the
+    # device busy share of the profiled rep's host wall
+    out["xprof"] = {}
+    for backend in ("cuda_fused", "torch_sim"):
+        logdir = OUT_DIR / f"xprof_{backend}"
+        cli_out([*readme, "-c", "3", "--backend", backend, "--verify",
+                 "--xprof", str(logdir), "--results-csv", csv])
+        rep = ledger.xprof_reports()[-1]
+        check(rep["source"] == "cupti-device-span",
+              f"--xprof on {backend}: source {rep['source']} "
+              f"({rep.get('error')})")
+        dev_ev = ledger.chrome_trace_device_events(
+            str(next(Path(rep["logdir"]).glob("*.pt.trace.json"))))
+        row = {"plane": rep["device_plane"],
+               "profiled_wall_us": rep["profiled_wall_s"] * 1e6,
+               "device_span_us": dev_ev["span_s"] * 1e6,
+               "device_busy_us": dev_ev["busy_s"] * 1e6,
+               "device_events": dev_ev["events"],
+               "reconstructed_us": rep["reconstructed_s"] * 1e6,
+               "busy_share": dev_ev["busy_s"] / rep["profiled_wall_s"],
+               "busy_share_of_span": dev_ev["busy_s"] / dev_ev["span_s"]}
+        out["xprof"][backend] = row
+        print(f"# xprof {backend}: {json.dumps(row)}", flush=True)
+    out["counts"] = {"fused_rep": fused_rep.launches}
+    print(f"# tam_obs launches: {out['counts']}", flush=True)
+    check(fused_rep.launches > 0, "K2 was not launched by --xprof on "
+          "cuda_fused")
     return out
 
 
@@ -1177,6 +1429,13 @@ def main() -> int:
     main_path = timed("main_path", phase_main_path)
     counts = main_path["counts"]
     faults = timed("faults_sweep", phase_faults_sweep, dev)
+    tam_obs = timed("tam_obs", phase_tam_obs, dev)
+    counts["fused_rep"] += tam_obs["counts"]["fused_rep"]
+    main_path["reps"]["fused_rep"] += tam_obs["counts"]["fused_rep"]
+    busy = {b: round(r["busy_share"], 6)
+            for b, r in tam_obs["xprof"].items()}
+    print(f"device busy share of one profiled README rep (union of the "
+          f"device events over the rep's host wall): {json.dumps(busy)}")
     print("measured phases " + json.dumps(main_path["measured"]))
     walls["main_path.measured"] = main_path["measured_s"]
     print(f"# phase walls (s): {json.dumps(walls)}")

@@ -72,13 +72,14 @@ def test_cli_refuses_without_a_card(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("flags,needle", [
     (["--fault", "slow:r1*2.0", "--backend", "cuda_dma"], "--fault"),
-    (["--xprof", "x"], "--xprof"),
+    (["--fault", "slow:r1*2.0", "--backend", "native"], "--fault"),
 ])
 def test_unported_flags_raise_named_errors(flags, needle, tmp_path):
-    """--xprof is not ported. --fault runs since the faulted lowering was
-    ported (tests/test_torch_faults.py), except on the remote-DMA
-    transport, which has no faulted lowering and refuses it by name
-    (DmaFaultError, a NotPortedError) before any method runs."""
+    """--fault runs since the faulted lowering was ported
+    (tests/test_torch_faults.py), except on the remote-DMA transport and
+    the native runtime, which have no faulted lowering and refuse it by
+    name (DmaFaultError, a NotPortedError; NotPortedError) before any
+    method runs. --xprof and --trace run (tests/test_torch_obs.py)."""
     argv = ["-n", "8", "-m", "1", "-a", "3", "-d", "256", "--device", "cpu",
             "--results-csv", str(tmp_path / "r.csv")] + flags
     with pytest.raises(SystemExit) as e:

@@ -581,3 +581,79 @@ def test_delay_time_rises_with_the_factor(cuda):
         times.append(b.measure_per_rep(_faulted_readme(f"slow:r2*{f}"),
                                        **kw))
     assert all(a < b_ for a, b_ in zip(times, times[1:])), times
+
+
+# ---------------------------------------------------------------------------
+# the tam driver's proxy route and the profiler cross-check on the card
+
+@pytest.mark.parametrize("iters", [5, 50, 53])
+@pytest.mark.parametrize("stripe,n", [(0, 256), (3, 64)])
+def test_sim_graph_chain_equals_the_eager_chain(cuda, stripe, n, iters):
+    """The proxy route's chain (three gathers, then y ^ (r % 251)) as CUDA
+    graph replays ends in the eager chain's bytes on the card and on the
+    CPU; every graph capture is a ledger record of its block length."""
+    from tpu_aggcomm_torch.core.topology import static_node_assignment
+    from tpu_aggcomm_torch.core.workload import initialize_setting
+    from tpu_aggcomm_torch.obs import ledger
+    from tpu_aggcomm_torch.tam.workload_engines import proxy_route_program
+
+    na = static_node_assignment(n, 64 if n >= 64 else n, 0)
+    wl = initialize_setting(na, 16, stripe)
+    x0, _, step = proxy_route_program(wl, na, cuda)
+    c0, _, cstep = proxy_route_program(wl, na, "cpu")
+    before = len(ledger.compile_records())
+    got = chained.graph_chain(None, step=step)(iters)(x0)
+    want = chained.eager_chain(None, step=step)(iters)(x0)
+    cpu = chained.eager_chain(None, step=cstep)(iters)(c0)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), cpu)
+    caps = [r for r in ledger.compile_records()[before:]
+            if r["kind"] == "graph-capture"]
+    full, rest = divmod(iters, chained.GRAPH_BLOCK)
+    assert sorted(r["reps"] for r in caps) == sorted(
+        ([chained.GRAPH_BLOCK] if full else []) + ([rest] if rest else []))
+
+
+def test_sim_route_verifies_on_the_card(cuda):
+    """The route's flat delivery on the card equals the CPU's byte for
+    byte and passes the vectorised check; a flipped byte is named as
+    verify_all names it."""
+    from tpu_aggcomm_torch.core.topology import static_node_assignment
+    from tpu_aggcomm_torch.core.workload import initialize_setting
+    from tpu_aggcomm_torch.harness.verify import VerificationError
+    from tpu_aggcomm_torch.tam.workload_engines import (proxy_route,
+                                                        recv_from_flat,
+                                                        verify_recv_flat)
+
+    na = static_node_assignment(256, 64, 0)
+    wl = initialize_setting(na, 16, 1)
+    flat, times = proxy_route(wl, na, ntimes=2, device=cuda)
+    ref, _ = proxy_route(wl, na, device="cpu")
+    assert len(times) == 2 and all(t > 0 for t in times)
+    assert torch.equal(flat.cpu(), ref)
+    verify_recv_flat(wl, flat)
+    flat[1000] ^= 0xFF
+    with pytest.raises(VerificationError) as got:
+        verify_recv_flat(wl, flat)
+    with pytest.raises(VerificationError) as want:
+        wl.verify_all(recv_from_flat(wl, flat.cpu().numpy()))
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("backend", ["torch_sim", "cuda_fused"])
+def test_xprof_reads_the_device_span(cuda, backend, tmp_path, capsys):
+    """--xprof on the card reports the span of the profiled rep's device
+    events from torch.profiler's trace, never the host wall."""
+    from tpu_aggcomm_torch import cli
+    from tpu_aggcomm_torch.obs import ledger
+
+    assert cli.main(["-n", "32", "-m", "1", "-a", "14", "-d", "2048", "-c",
+                     "3", "--backend", backend, "--verify", "--xprof",
+                     str(tmp_path / "xp"), "--results-csv",
+                     str(tmp_path / "r.csv")]) == 0
+    rep = ledger.xprof_reports()[-1]
+    assert rep["source"] == "cupti-device-span", rep
+    assert rep["device_plane"].startswith("cuda:")
+    assert torch.cuda.get_device_name(0) in rep["device_plane"]
+    assert 0 < rep["device_span_s"] <= rep["profiled_wall_s"]
+    assert "[cupti-device-span]" in capsys.readouterr().out

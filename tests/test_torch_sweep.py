@@ -196,7 +196,6 @@ def test_sweep_runs_on_the_card_unless_asked(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["--trace", "t"], "NotPortedError: sweep --trace is not ported"),
     (["--auto"], "NotPortedError: sweep --auto is not ported"),
     (["--tune-root", "."], "NotPortedError: sweep --tune-root is not"),
     (["--metrics-port", "0"], "NotPortedError: sweep --metrics-port is"),

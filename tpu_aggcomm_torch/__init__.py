@@ -11,8 +11,13 @@ rewritten in torch with hand-written CUDA kernels for Hopper.
                                      ``cuda_fused`` (one kernel per rep)
                                      and ``cuda_dma`` (one CTA per rank)
 - :mod:`tpu_aggcomm_torch.harness`   timing, verification, reporting, runner
+- :mod:`tpu_aggcomm_torch.tam`       the TAM engine and the ``tam``
+                                     driver's workload engines
+- :mod:`tpu_aggcomm_torch.obs`       flight recorder, run ledger,
+                                     profiler cross-check
 - :mod:`tpu_aggcomm_torch.csrc`      CUDA sources and their build loader
-- :mod:`tpu_aggcomm_torch.cli`       the ``./test``-compatible ``run``
+- :mod:`tpu_aggcomm_torch.cli`       the ``./test``-compatible ``run``,
+                                     ``sweep`` and ``tam``
 - :mod:`tpu_aggcomm_torch.bench`     the headline exchange benchmark
 
 Entry points run on the CUDA device unless the caller passes

@@ -24,7 +24,8 @@ completion is forced by a checksum readback, and the fixed per-chain
 overhead (launch, readback) cancels by differencing two chain lengths
 (harness/chained.py). The value is therefore the device time per rep of
 a chain running on the card, not a host launch rate. ``kernel_launches``
-counts chain launches and ``reps`` the reps they ran.
+counts chain launches and ``reps`` the reps they ran; ``manifest`` and
+``compile_seconds`` are the reference's run-ledger fields.
 
 There is no CPU fallback: without a card the line is
 ``{"metric": ..., "error": ...}`` and the exit code is 1.
@@ -85,6 +86,7 @@ def measure() -> dict:
     from tpu_aggcomm_torch.core.pattern import AggregatorPattern
     from tpu_aggcomm_torch.device import resolve_device
     from tpu_aggcomm_torch.harness.chained import differenced_trials
+    from tpu_aggcomm_torch.obs import ledger
 
     dev = resolve_device("cuda")
     p = AggregatorPattern(nprocs=PROCS, cb_nodes=CB_NODES,
@@ -135,6 +137,11 @@ def measure() -> dict:
         "hbm_peak_bytes": int(torch.cuda.max_memory_allocated(dev)),
         "kernel_launches": exchange.launches,
         "reps": exchange.reps,
+        # the reference's parsed-schema v3 fields: the environment the
+        # value was taken on (torch, CUDA, nvcc, the card) and the host
+        # walls of the chain's warm-up (kernel build included)
+        "manifest": ledger.manifest(),
+        "compile_seconds": ledger.total_compile_seconds(),
     }
 
 

@@ -5,11 +5,17 @@ subcommand. Bare flags are ``run``, as in the reference: grammar
 ``"hp:c:m:d:a:i:k:t:b:"`` (mpi_test.c:2130-2166) plus ``-n`` (rank count;
 the reference gets it from ``mpiexec -n``), ``--backend``, ``--verify``,
 ``--chained``, ``--profile-rounds``, ``--measured-phases``, ``--fault``,
-``--device`` and ``--results-csv``. ``sweep`` is the reference's Theta
-job scripts: one run per throttle value over ``-c`` in 1, 2, 4, ...,
-8192 and unthrottled, with ``--fault`` as an extra axis and ``--resume``.
-Both run on the CUDA device unless ``--device cpu`` is given; ``local``
-and ``native`` are host oracles, for which ``--device`` does not apply.
+``--device``, ``--results-csv``, ``--trace`` (the flight recorder) and
+``--xprof`` (one extra rep per method under ``torch.profiler``).
+``sweep`` is the reference's Theta job scripts: one run per throttle
+value over ``-c`` in 1, 2, 4, ..., 8192 and unthrottled, with ``--fault``
+as an extra axis, ``--resume`` and ``--trace``. ``tam`` is the
+reference's DEBUG driver of the TAM engine (lustre_driver_test.c:
+1417-1509): topology, OST-stripe workload, two-level aggregator
+metadata, an engine, the correctness check. All run on the CUDA device
+unless ``--device cpu`` is given; ``local`` and ``native`` and the
+``tam`` engines other than ``sim`` are host engines, for which
+``--device`` does not apply.
 
 Examples::
 
@@ -22,6 +28,10 @@ Examples::
     python -m tpu_aggcomm_torch.cli -m 15 -a 14 -d 2048 -p 4 --measured-phases --verify
     python -m tpu_aggcomm_torch.cli sweep -n 8 -a 3 -d 256 --comm-sizes 1,2,4 --device cpu --verify
     python -m tpu_aggcomm_torch.cli sweep -m 1 -a 14 -d 2048 --chained --verify --fault none --fault deadlink:5>3
+    python -m tpu_aggcomm_torch.cli -n 8 -m 1 -a 3 -d 256 -c 2 --device cpu --verify --trace /tmp/t
+    python -m tpu_aggcomm_torch.cli -m 1 -a 14 -d 2048 -c 3 --verify --xprof /tmp/xp
+    python -m tpu_aggcomm_torch.cli tam -n 16 -p 4 -b 16 -t 1 -c 2 --mode 1 --engine local_agg
+    python -m tpu_aggcomm_torch.cli tam -n 16384 -p 64 -b 16 -t 0 --engine sim --chained
 """
 
 from __future__ import annotations
@@ -100,9 +110,71 @@ def build_parser() -> argparse.ArgumentParser:
                          "delay loops, dead edges of unrepaired "
                          "schedules); refused on cuda_dma/cuda_dma_conc")
     ap.add_argument("--results-csv", default="results.csv")
-    # reference flags whose machinery is not ported yet: accepted so the
-    # refusal is named, never an argparse usage error
-    ap.add_argument("--xprof", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--trace", metavar="PREFIX", default=None,
+                    help="flight recorder: write PREFIX.trace.jsonl "
+                         "(structured events) and PREFIX.trace.json "
+                         "(Chrome/Perfetto). Results CSVs and console "
+                         "output are unchanged; off = zero overhead")
+    ap.add_argument("--xprof", metavar="LOGDIR", default=None,
+                    help="profile ONE extra rep per method under "
+                         "torch.profiler into LOGDIR and print a "
+                         "divergence report: device timeline (or "
+                         "profiled host wall) vs the reconstructed "
+                         "attribution rep — a cross-check only; the "
+                         "timed path and the reconstructed cells are "
+                         "untouched")
+
+    # TAM workload harness — the reference's DEBUG driver
+    # (lustre_driver_test.c:1417-1509, grammar "hp:b:n:t:r:c:")
+    tam = sub.add_parser(
+        "tam", help="hierarchical-engine workload harness: topology -> "
+                    "synthetic workload -> aggregator metadata -> engine -> "
+                    "correctness check (the reference's DEBUG driver)")
+    tam.add_argument("-n", "--nprocs", type=int, default=8,
+                     help="logical ranks (reference: mpiexec -n)")
+    tam.add_argument("-p", dest="proc_node", type=int, default=4,
+                     help="ranks per (simulated) node")
+    tam.add_argument("-b", dest="blocklen", type=int, default=16,
+                     help="message block unit size (sizes are 1 + rank %% b)")
+    tam.add_argument("-t", dest="stripe", type=int, default=0,
+                     choices=[0, 1, 2, 3],
+                     help="workload type: 0 SAME (node proxies), 1 GREATER "
+                          "(odd ranks), 2 LESS (first half), 3 ALL")
+    tam.add_argument("-r", dest="rank_assignment", type=int, default=0,
+                     choices=[0, 1],
+                     help="node map: 0 contiguous, 1 round-robin")
+    tam.add_argument("-c", dest="co", type=int, default=1,
+                     help="local aggregators per node")
+    tam.add_argument("-k", dest="ntimes", type=int, default=1,
+                     help="timed engine repetitions")
+    tam.add_argument("--mode", type=int, default=0, choices=[0, 1],
+                     help="local-aggregator selection: 0 even spread, "
+                          "1 superset of global aggregators")
+    tam.add_argument("--engine",
+                     choices=("proxy", "local_agg", "shared", "benchmark",
+                              "jax", "shared_jax", "sim", "native",
+                              "native2", "native3"),
+                     default="proxy",
+                     help="route: collective_write / _2 / _3 / _benchmark "
+                          "oracles, the single-device proxy route (sim: "
+                          "three fenced byte gathers on the card), or the "
+                          "C++ threaded engines (native = proxy route, "
+                          "native2 = two-level local-aggregator route, "
+                          "native3 = shared-window route); jax and "
+                          "shared_jax (the mesh programs) need one device "
+                          "per rank and are refused by name")
+    tam.add_argument("--chained", action="store_true",
+                     help="engine sim only: serial-chained differenced "
+                          "per-rep timing (CUDA graph replays on the card)")
+    tam.add_argument("--reorder", action="store_true",
+                     help="apply reorder_ranklist before the engine: deal "
+                          "the destination list round-robin across nodes "
+                          "so consecutive destinations sit on distinct "
+                          "nodes (the reference driver's commented-out "
+                          "flow, lustre_driver_test.c:1495-1499 — an "
+                          "optional extension, not dispatched there)")
+    tam.add_argument("--device", default="cuda",
+                     help="engine sim only: cuda (default) or cpu")
 
     # sweep — the Theta job scripts (script_theta_*.sh:33-106)
     sw = sub.add_parser(
@@ -150,10 +222,12 @@ def build_parser() -> argparse.ArgumentParser:
                          "throttle grid under that scenario; the literal "
                          "'none' is the healthy baseline cell; recorded "
                          "in the resume sidecar and journal")
-    # reference flags whose machinery is not ported yet (ROADMAP.md queue
-    # A items 4 and 6): accepted so the refusal is named
     sw.add_argument("--trace", metavar="PREFIX", default=None,
-                    help="not ported yet (refused by name)")
+                    help="flight recorder over the whole sweep: one "
+                         "PREFIX.trace.{jsonl,json} pair covering every "
+                         "cell")
+    # reference flags whose machinery is not ported yet (ROADMAP.md queue
+    # A item 6): accepted so the refusal is named
     sw.add_argument("--auto", action="store_true",
                     help="not ported yet (refused by name)")
     sw.add_argument("--tune-root", default=None,
@@ -345,14 +419,14 @@ def _run_sweep(args) -> int:
                                               RunJournal, check_boundary,
                                               safe_cancellation)
 
-    for flag, on in (("--trace", args.trace), ("--auto", args.auto),
+    for flag, on in (("--auto", args.auto),
                      ("--tune-root", args.tune_root),
                      ("--metrics-port", args.metrics_port is not None)):
         if on:
             raise NotPortedError(
                 f"sweep {flag} is not ported to tpu_aggcomm_torch yet "
-                f"(ROADMAP.md queue A items 4 and 6); run it on the "
-                f"reference package")
+                f"(ROADMAP.md queue A item 6); run it on the reference "
+                f"package")
     if args.comm_sizes:
         grid = [int(x) for x in args.comm_sizes.split(",") if x.strip()]
         if not grid:
@@ -386,7 +460,7 @@ def _run_sweep(args) -> int:
         man = ledger.manifest()
         fp = journal.begin_session(man)
     try:
-        with safe_cancellation():
+        with _tracing(args.trace), safe_cancellation():
             for fs in faults:
                 cells = grid
                 if args.resume:
@@ -460,6 +534,125 @@ def _run_sweep(args) -> int:
     return 0
 
 
+def _tracing(prefix):
+    """Context manager enabling the flight recorder for one CLI run and
+    flushing ``<prefix>.trace.{jsonl,json}`` on exit. ``prefix=None``
+    (tracing off) is a no-op."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def cm():
+        if not prefix:
+            yield
+            return
+        from tpu_aggcomm_torch.obs import trace
+        trace.enable()
+        try:
+            yield
+        finally:
+            paths = trace.flush(prefix)
+            trace.disable()
+            if paths:
+                print(f"trace written: {paths[0]} (events), "
+                      f"{paths[1]} (Perfetto)")
+
+    return cm()
+
+
+def _run_tam(args) -> int:
+    """The DEBUG-driver flow (lustre_driver_test.c:1417-1509):
+    static_node_assignment -> initialize_setting -> aggregator_meta_information
+    -> engine -> test_correctness. The port of ``tpu_aggcomm/cli.py:
+    _run_tam``: every line but the timing values is the reference's. The
+    ``sim`` engine runs on the card (``--device cpu`` on the CPU) and is
+    checked in one vectorised pass over its flat delivery, which raises
+    the VerificationError ``verify_all`` would; the mesh engines are
+    refused by name before anything runs."""
+    import time
+
+    from tpu_aggcomm_torch.core.meta import aggregator_meta_information
+    from tpu_aggcomm_torch.core.topology import static_node_assignment
+    from tpu_aggcomm_torch.core.workload import StripeType, initialize_setting
+    from tpu_aggcomm_torch.tam.workload_engines import (cw2_local_agg_jax,
+                                                        cw3_shared_jax,
+                                                        run_workload_engine)
+
+    if args.engine in ("jax", "shared_jax"):
+        refused = cw2_local_agg_jax if args.engine == "jax" \
+            else cw3_shared_jax
+        refused(None, None, None, None)
+    na = static_node_assignment(args.nprocs, args.proc_node,
+                                args.rank_assignment)
+    wl = initialize_setting(na, args.blocklen, StripeType(args.stripe))
+    # the reference's rank-0 config banner — FIRST line, byte-identical
+    # to the DEBUG driver's printf (l_d_t.c:1454)
+    print(f"blocklen = {args.blocklen}, nprocs_node = {args.proc_node}, "
+          f"rank_assignment = {args.rank_assignment}, type = {args.stripe}, "
+          f"co = {args.co}")
+    if args.reorder:
+        # reorder_ranklist before the engine (the reference driver's
+        # commented-out call site, l_d_t.c:1495-1499): same destination
+        # SET, node-interleaved ORDER — engines must handle an unsorted
+        # destination list
+        from dataclasses import replace as _replace
+
+        from tpu_aggcomm_torch.core.pattern import reorder_ranklist
+        new_order = reorder_ranklist(na.node_of, wl.aggregators, na.nnodes)
+        wl = _replace(wl, aggregators=new_order)
+        print(f"| reordered aggregators = "
+              f"{', '.join(str(int(r)) for r in new_order)}")
+    meta = aggregator_meta_information(na, wl.aggregators, args.co, args.mode)
+    print(f"| nprocs = {args.nprocs}, nodes = {na.nnodes}, "
+          f"aggregators = {len(wl.aggregators)}, "
+          f"local aggregators = {len(meta.local_aggregators)}, "
+          f"total bytes = {wl.total_bytes}")
+
+    if args.engine == "native3":
+        from tpu_aggcomm_torch.backends.native import run_workload_cw3
+        recv, times = run_workload_cw3(wl, na, meta, ntimes=args.ntimes)
+        wl.verify_all(recv)
+        print(f"| engine = native shared-window (C++ threads), "
+              f"reps = {len(times)}, min rep = {min(times):.6f} s")
+    elif args.engine == "sim":
+        from tpu_aggcomm_torch.tam.workload_engines import (proxy_route,
+                                                            verify_recv_flat)
+        flat, times = proxy_route(wl, na, ntimes=args.ntimes,
+                                  device=args.device, chained=args.chained)
+        verify_recv_flat(wl, flat)
+        kind = "chained differenced" if args.chained else "per-dispatch"
+        print(f"| engine = single-chip proxy route (compiled, {kind}), "
+              f"reps = {len(times)}, min rep = {min(times):.6f} s")
+    elif args.engine == "native":
+        from tpu_aggcomm_torch.backends.native import run_workload_proxy
+        recv, times = run_workload_proxy(wl, na, ntimes=args.ntimes)
+        wl.verify_all(recv)
+        print(f"| engine = native proxy (C++ threads), reps = {len(times)}, "
+              f"min rep = {min(times):.6f} s")
+    elif args.engine == "native2":
+        from tpu_aggcomm_torch.backends.native import run_workload_cw2
+        recv, times = run_workload_cw2(wl, meta, ntimes=args.ntimes)
+        wl.verify_all(recv)
+        print(f"| engine = native two-level (C++ threads), "
+              f"reps = {len(times)}, min rep = {min(times):.6f} s")
+    else:
+        times = []
+        stats = None
+        for _ in range(max(args.ntimes, 1)):
+            t0 = time.perf_counter()
+            recv, stats = run_workload_engine(args.engine, wl, na, meta)
+            times.append(time.perf_counter() - t0)
+        wl.verify_all(recv)
+        print(f"| engine = {args.engine}, reps = {len(times)}, "
+              f"min rep = {min(times):.6f} s")
+        print(f"| route bytes: gather = {stats.gather_bytes}, "
+              f"exchange intra/inter = {stats.exchange_intra_bytes}/"
+              f"{stats.exchange_inter_bytes}, "
+              f"delivery = {stats.delivery_bytes}, "
+              f"direct = {stats.direct_bytes}, staged = {stats.staged_bytes}")
+    print("| correctness: PASSED")
+    return 0
+
+
 def _run(args) -> int:
     from tpu_aggcomm_torch.harness.runner import (ExperimentConfig,
                                                   run_experiment)
@@ -473,7 +666,8 @@ def _run(args) -> int:
         profile_rounds=args.profile_rounds,
         measured_phases=args.measured_phases, xprof=args.xprof,
         fault=args.fault)
-    run_experiment(cfg)
+    with _tracing(args.trace):
+        run_experiment(cfg)
     return 0
 
 
@@ -488,6 +682,8 @@ def main(argv=None) -> int:
     from tpu_aggcomm_torch.faults import FaultSpecError, RepairError
     from tpu_aggcomm_torch.native.fuse import UnfusableScheduleError
     try:
+        if args.command == "tam":
+            return _run_tam(args)
         if args.command == "sweep":
             return _run_sweep(args)
         return _run(args)

@@ -11,7 +11,7 @@ Equivalents here:
 - :func:`static_node_assignment` — same arithmetic fabrication, used for
   tests and for mapping logical ranks onto a 2-axis (node × local) mesh.
 - ``mesh_node_assignment`` (discovery from live devices) belongs to the
-  multi-device tier and is not copied yet (ROADMAP.md, queue A item 16).
+  multi-device tier and is not copied yet (ROADMAP.md, queue A item 8).
 
 Unlike the reference (per-rank output views), we compute the global
 assignment once; per-rank views are cheap numpy slices.

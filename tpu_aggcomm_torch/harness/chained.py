@@ -23,7 +23,17 @@ same steps one by one.
 
 The chained token reproduces the reference's int32 arithmetic exactly, so
 chain end states are byte-equal across packages, and between the graph
-and the eager chain.
+and the eager chain. A caller whose scan body is not a schedule rep plus
+the token and XOR (the ``tam`` driver's proxy route: three gathers, then
+``y ^ r``) passes its own in-place ``step`` to either chain.
+
+With the flight recorder on, the timing records what the reference's
+does: a ``chained.warmup`` span, a ``ledger.compile`` instant of the
+warm-up (and one of every CUDA-graph capture: on the card the port's
+compile is a capture, recorded as ``kind="graph-capture"`` with its
+block length), one ``chained.trial`` instant per differenced trial and a
+``chained.samples`` instant of the accepted trials. All are host-side
+events outside the timed windows.
 """
 
 from __future__ import annotations
@@ -36,9 +46,10 @@ import numpy as np
 import torch
 
 from tpu_aggcomm_torch.backends.lanes import wrap_i32
+from tpu_aggcomm_torch.obs import ledger, trace
 
 __all__ = ["MAX_MEASURED_ROUNDS", "GRAPH_BLOCK", "ChainCaptureError",
-           "chain_token", "xor_word", "chain_step", "checksum",
+           "chain_token", "xor_word", "chain_step", "rep_step", "checksum",
            "eager_chain", "graph_chain", "differenced_trials",
            "differenced_per_rep", "differenced_round_times"]
 
@@ -99,19 +110,36 @@ def chain_step(send: torch.Tensor, recv: torch.Tensor, n_recv_slots: int,
         send.bitwise_xor_(tok.to(send.dtype))
 
 
+def rep_step(rep, n_recv_slots: int):
+    """The default in-place chain step: ``step(send, r)`` runs
+    :func:`chain_step` on ``rep(send)``."""
+    def step(send: torch.Tensor, r) -> None:
+        chain_step(send, rep(send), n_recv_slots, r)
+    return step
+
+
 def checksum(t: torch.Tensor) -> int:
     """A readback that forces completion of everything queued before it."""
     return int(t.to(torch.int64).sum().item())
 
 
-def eager_chain(rep, n_recv_slots: int):
+def eager_chain(rep, n_recv_slots: int = 0, *, step=None):
     """``make_chain(iters)`` running the chain one operation at a time:
     ``iters`` reps of ``rep``, rep r+1's send XOR-perturbed by
     ``xor_word`` of rep r's token. The chain on the CPU, and the plain
-    version :func:`graph_chain` is held against."""
+    version :func:`graph_chain` is held against.
+
+    A caller with another scan body passes ``step(carry, r)`` (and
+    ``rep=None``): rep r updates the carry in place, r a Python int from
+    0; the chain runs it on a copy of ``send0``."""
 
     def make_chain(iters: int):
         def chain(send0):
+            if step is not None:
+                carry = send0.clone()
+                for r in range(iters):
+                    step(carry, r)
+                return carry
             send = send0
             for r in range(iters):
                 recv = rep(send)
@@ -150,9 +178,11 @@ def _capture(fn, state: dict):
     return graph.replay
 
 
-def graph_chain(rep, n_recv_slots: int):
+def graph_chain(rep, n_recv_slots: int = 0, *, step=None):
     """``make_chain(iters)`` for a CUDA device: the chain of
-    :func:`eager_chain`, run as CUDA graph replays.
+    :func:`eager_chain`, run as CUDA graph replays. ``step`` is
+    :func:`eager_chain`'s hook; here ``r`` is the device rep counter, a
+    0-d int64 tensor.
 
     At a chain family's first call, one eager rep warms ``rep`` up (kernel
     builds, lazy initialisation), then :data:`GRAPH_BLOCK` reps, each with its
@@ -170,18 +200,21 @@ def graph_chain(rep, n_recv_slots: int):
     every replay adds what one pass of its block launches (one launch of
     K2 a rep for ``cuda_fused``, one of the slow-rank delay a faulted rep
     with a slow rank). A capture that fails raises
-    :class:`ChainCaptureError`."""
+    :class:`ChainCaptureError`. Each capture is a ledger record of kind
+    "graph-capture" with its block length."""
     state: dict = {"graphs": {}}
+    one = step if step is not None else rep_step(rep, n_recv_slots)
 
     def body(length: int) -> None:
         carry, r = state["carry"], state["r"]
         for _ in range(length):
-            chain_step(carry, rep(carry), n_recv_slots, r)
+            one(carry, r)
             r.add_(1)
 
     def graph_of(length: int):
         if length not in state["graphs"]:
             before = _counters()
+            t0 = time.perf_counter()
             try:
                 replay_fn = _capture(lambda: body(length), state)
             except Exception as e:  # lint: broad-ok (re-raised, named)
@@ -192,6 +225,10 @@ def graph_chain(rep, n_recv_slots: int):
                 captured = {k: v - before[k] for k, v in _counters().items()}
                 for (w, a), v in before.items():
                     setattr(w, a, v)
+            rec = ledger.record_compile(
+                f"graph(reps={length})", seconds=time.perf_counter() - t0,
+                kind="graph-capture", reps=length)
+            trace.instant("ledger.compile", **rec)
             state["graphs"][length] = (replay_fn, captured)
         return state["graphs"][length]
 
@@ -249,14 +286,30 @@ def differenced_trials(chain_factory, send0, *, iters_small: int,
 
     f_small = chain_factory(iters_small)
     f_big = chain_factory(iters_big)
-    checksum(f_small(send0))     # warm-up: allocator, kernel load, capture
-    checksum(f_big(send0))
+    # warm-up: allocator, kernel builds, graph captures
+    with trace.span("chained.warmup", iters_small=iters_small,
+                    iters_big=iters_big):
+        t0 = time.perf_counter()
+        checksum(f_small(send0))
+        warm_small = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        checksum(f_big(send0))
+        warm_big = time.perf_counter() - t0
+    rec = ledger.record_compile(
+        f"chain(iters={iters_small}/{iters_big})",
+        seconds=warm_small + warm_big, kind="compile+warmup",
+        warmup_small_s=warm_small, warmup_big_s=warm_big)
+    trace.instant("ledger.compile", **rec)
     per = []
     retries = max(trials, 3)
     while len(per) < trials:
         t_s = timed(f_small)
         t_b = timed(f_big)
         v = (t_b - t_s) / (iters_big - iters_small)
+        # the two chain wall times behind each accepted or rejected trial
+        trace.instant("chained.trial", iters_small=iters_small,
+                      iters_big=iters_big, t_small=t_s, t_big=t_b,
+                      per_rep=v, accepted=v > 0)
         if v > 0:
             per.append(v)
         elif retries > 0:
@@ -266,6 +319,10 @@ def differenced_trials(chain_factory, send0, *, iters_small: int,
                 f"differenced timing unstable: T({iters_big})={t_b:.6f}s <= "
                 f"T({iters_small})={t_s:.6f}s repeatedly; increase "
                 f"iters_big")
+    # the accepted trial set, as one instant (the reference's obs/compare
+    # bootstraps whole-rep deltas from it)
+    trace.instant("chained.samples", iters_small=iters_small,
+                  iters_big=iters_big, samples=list(per))
     return per
 
 

@@ -1,13 +1,19 @@
-"""Observability of the port, as far as its ported layers need it.
+"""Observability of the port: the flight recorder, its exporters and the
+run ledger, copied from ``tpu_aggcomm/obs/`` (import paths rewritten).
 
-- :mod:`tpu_aggcomm_torch.obs.trace` — the flight recorder, copied from
-  ``tpu_aggcomm/obs/trace.py``; the ``local`` oracle records its
-  deliveries into it. Off unless enabled; ``--trace`` stays refused by
-  name until ROADMAP.md queue A item 4.
-- :mod:`tpu_aggcomm_torch.obs.ledger` — the environment manifest the
-  run journal fingerprints (python, torch, CUDA, nvcc, the card, the git
-  sha), its drift diff, and the resilience records.
-
-``perfetto``, ``atomic`` and ``traffic`` hold the names the recorder
-imports lazily; each raises :class:`NotPortedError` when called.
+- :mod:`tpu_aggcomm_torch.obs.trace` — the flight recorder: host spans,
+  instants and the reconstructed per-rank timeline of every run
+  (``--trace PREFIX`` on ``run`` and ``sweep``). Off unless enabled.
+- :mod:`tpu_aggcomm_torch.obs.perfetto` — its Chrome/Perfetto export.
+- :mod:`tpu_aggcomm_torch.obs.metrics` — straggler statistics over the
+  recorded events (``round_stats``, ``critical_path``, ...).
+- :mod:`tpu_aggcomm_torch.obs.traffic` — the static traffic audit of a
+  schedule; its measured overlay waits for the ``inspect`` slice.
+- :mod:`tpu_aggcomm_torch.obs.atomic` — crash-safe file writes.
+- :mod:`tpu_aggcomm_torch.obs.ledger` — the environment manifest (torch,
+  CUDA, nvcc, the card), compile and graph-capture records, the HBM
+  peak, resilience records and the ``--xprof`` cross-check against a
+  ``torch.profiler`` trace.
+- :mod:`tpu_aggcomm_torch.obs.workload` — only the serve phase
+  boundaries the Perfetto export reads.
 """

@@ -15,13 +15,29 @@ flight recorder need:
   resumed sweep names these when it re-runs a cell recorded under
   another torch or another card.
 - **resilience records** — :func:`record_resilience`, copied: the
-  cancellation at a cell boundary is recorded here.
-
-The compile records and the HBM peak wait for ROADMAP.md queue A item 4.
+  cancellation at a cell boundary, a suppressed profiler failure.
+- **compile records** — :func:`record_compile`, copied: host walls
+  around set-up boundaries. The runner records each schedule build, each
+  repair and each method's first dispatch; the chain harness records
+  each CUDA-graph capture (``kind="graph-capture"``, the port's compile)
+  and its warm-up; the ``tam`` driver its route tables.
+- **device facts and the HBM peak** — :func:`record_device` and
+  :func:`record_hbm_peak`, copied; the runner records the card's name and
+  ``torch.cuda.max_memory_allocated``.
+- **the profiler cross-check** — :func:`xprof_report` reads the newest
+  Chrome trace that ``torch.profiler`` wrote into a logdir: the span of
+  its device events (kernels, copies, memsets) when it has any
+  (``source`` "cupti-device-span"), else the host wall around the
+  profiled rep ("host-wall(profiled)", the CPU case). The report's keys
+  are the reference's, which parsed ``*.xplane.pb`` instead.
+- **loading and rendering** — :func:`load_ledger` and the ``render_*``
+  functions, copied; :func:`render_manifest` names the port's versions.
 """
 
 from __future__ import annotations
 
+import glob
+import json
 import os
 import re
 import subprocess
@@ -29,13 +45,23 @@ import sys
 import time
 
 __all__ = ["SCHEMA_VERSION", "collect_manifest", "manifest",
-           "record_resilience", "diff_manifests", "DRIFT_IGNORE"]
+           "record_device", "record_compile", "compile_records",
+           "total_compile_seconds", "record_hbm_peak", "hbm_peak",
+           "record_resilience", "resilience_records",
+           "render_resilience", "diff_resilience", "reset",
+           "diff_manifests", "DRIFT_IGNORE",
+           "load_ledger", "render_manifest", "render_ledgers",
+           "xprof_report", "xprof_reports", "render_xprof",
+           "chrome_trace_device_events", "DEVICE_EVENT_CATEGORIES"]
 
 #: The manifest's schema: the reference's v3 with the port's versions.
 SCHEMA_VERSION = 3
 
 _MANIFEST: dict | None = None
+_COMPILES: list[dict] = []
+_XPROF: list[dict] = []
 _RESILIENCE: list[dict] = []
+_HBM_PEAK: int | None = None
 
 
 def _git_sha() -> str | None:
@@ -106,6 +132,57 @@ def manifest() -> dict:
     return out
 
 
+def record_device(*, device_kind: str | None = None) -> None:
+    """Fill the manifest's device facts: the reference's, less the
+    platform and the tunnel's RPC probe (the port runs on the card, with
+    no tunnel). The runner passes the card's name, which the manifest
+    already holds from torch, so a recorded device never changes the
+    journal's fingerprint."""
+    if device_kind is not None:
+        collect_manifest()["device_kind"] = str(device_kind)
+
+
+def record_compile(label: str, *, seconds: float, kind: str = "compile",
+                   **extra) -> dict:
+    """Append one compile-telemetry record (``seconds`` is a host wall
+    around a compile-containing boundary; ``kind`` says which boundary:
+    "schedule-build", "first-dispatch", "compile+warmup", "lower").
+    Extra keys (lower_seconds, cost, iters, backend...) ride along;
+    None values are dropped."""
+    rec = {"label": str(label), "seconds": float(seconds),
+           "kind": str(kind)}
+    for k, v in extra.items():
+        if v is not None:
+            rec[k] = v
+    _COMPILES.append(rec)
+    return rec
+
+
+def compile_records() -> list[dict]:
+    return list(_COMPILES)
+
+
+def total_compile_seconds() -> float:
+    """Total wall seconds across every compile record — the one number
+    the bench artifact carries (``compile_seconds``) and the regression
+    compile gate compares."""
+    return sum(r["seconds"] for r in _COMPILES)
+
+
+def record_hbm_peak(nbytes) -> None:
+    """Track the worst HBM peak a jax-side caller observed
+    (``device.memory_stats()['peak_bytes_in_use']``)."""
+    global _HBM_PEAK
+    if nbytes is None:
+        return
+    n = int(nbytes)
+    _HBM_PEAK = n if _HBM_PEAK is None else max(_HBM_PEAK, n)
+
+
+def hbm_peak() -> int | None:
+    return _HBM_PEAK
+
+
 def record_resilience(site: str, *, kind: str, **extra) -> dict:
     """Append one resilience record (``kind`` "cancel" from
     :func:`tpu_aggcomm_torch.resilience.watchdog.check_boundary`). None
@@ -116,6 +193,25 @@ def record_resilience(site: str, *, kind: str, **extra) -> dict:
             rec[k] = v
     _RESILIENCE.append(rec)
     return rec
+
+
+def resilience_records() -> list[dict]:
+    return list(_RESILIENCE)
+
+
+def xprof_reports() -> list[dict]:
+    return list(_XPROF)
+
+
+def reset() -> None:
+    """Forget everything (tests only — the whole point of the ledger is
+    that production processes never clear it)."""
+    global _MANIFEST, _HBM_PEAK
+    _MANIFEST = None
+    _HBM_PEAK = None
+    _COMPILES.clear()
+    _XPROF.clear()
+    _RESILIENCE.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -155,3 +251,335 @@ def diff_manifests(a: dict | None, b: dict | None) -> list[dict]:
         if va != vb:
             drift.append({"key": k, "a": va, "b": vb})
     return drift
+
+
+# ---------------------------------------------------------------------------
+# Loading ledgers back out of artifacts.
+
+def load_ledger(path: str) -> dict:
+    """The ledger view of one artifact: ``{"file", "manifest",
+    "compile_seconds", "hbm_peak_bytes", "platform", "value"}`` (missing
+    fields None). Accepts a driver-wrapped ``BENCH_rNN.json``
+    (``{"parsed": {...}}``), a bare bench JSON line, or a
+    ``*.trace.jsonl`` event log (the ledger preamble event; resilience
+    records come back out of the ``ledger.resilience`` instants)."""
+    out = {"file": path, "manifest": None, "compile_seconds": None,
+           "hbm_peak_bytes": None, "platform": None, "value": None,
+           "resilience": []}
+    if path.endswith(".jsonl"):
+        with open(path) as fh:
+            for line in fh:
+                if not line.strip():
+                    continue
+                e = json.loads(line)
+                if e.get("ev") == "ledger" and out["manifest"] is None:
+                    out["manifest"] = e.get("manifest")
+                    m = out["manifest"] or {}
+                    out["platform"] = m.get("platform")
+                elif e.get("ev") == "instant" \
+                        and e.get("name") == "ledger.resilience" \
+                        and isinstance(e.get("args"), dict):
+                    out["resilience"].append(e["args"])
+        return out
+    with open(path) as fh:
+        blob = json.load(fh)
+    parsed = blob.get("parsed") if isinstance(blob.get("parsed"), dict) \
+        else blob if isinstance(blob, dict) else {}
+    if isinstance(parsed, dict):
+        out["manifest"] = parsed.get("manifest") \
+            if isinstance(parsed.get("manifest"), dict) else None
+        for k in ("compile_seconds", "hbm_peak_bytes", "platform", "value"):
+            out[k] = parsed.get(k, out[k])
+        if isinstance(parsed.get("resilience"), list):
+            out["resilience"] = [r for r in parsed["resilience"]
+                                 if isinstance(r, dict)]
+    return out
+
+
+def _fmt(v, unit: str = "") -> str:
+    if v is None:
+        return "-"
+    if isinstance(v, float):
+        return f"{v:.6g}{unit}"
+    return f"{v}{unit}"
+
+
+def render_manifest(m: dict | None, indent: str = "  ") -> str:
+    """Human block for one manifest (``inspect ledger``): the
+    reference's layout, naming what the port runs on (torch, the CUDA
+    version torch was built for, nvcc) where the reference names jax,
+    jaxlib and libtpu."""
+    if not isinstance(m, dict):
+        return f"{indent}(no ledger: pre-v3 artifact)\n"
+    v = m.get("versions") or {}
+    e = m.get("env") or {}
+    lines = [
+        f"{indent}platform {_fmt(m.get('platform'))}  "
+        f"device_kind {_fmt(m.get('device_kind'))}",
+        f"{indent}torch {_fmt(v.get('torch'))}  cuda {_fmt(v.get('cuda'))}  "
+        f"nvcc {_fmt(v.get('nvcc'))}  python {_fmt(m.get('python'))}  "
+        f"git {_fmt(m.get('git_sha'))}",
+        f"{indent}env: CUDA_VISIBLE_DEVICES="
+        f"{_fmt(e.get('cuda_visible_devices'))}",
+    ]
+    return "\n".join(lines) + "\n"
+
+
+def render_resilience(records: list[dict], indent: str = "  ") -> str:
+    """Human lines for one artifact's resilience records (``inspect
+    ledger``): attempt timelines grouped per retry site, the other
+    record kinds one line each. Empty string when there are none — a
+    pre-resilience artifact renders exactly as before."""
+    if not records:
+        return ""
+    lines: list[str] = []
+    sites: dict[str, list[dict]] = {}
+    for r in records:
+        if r.get("kind") == "attempt":
+            sites.setdefault(str(r.get("site")), []).append(r)
+    for site, recs in sites.items():
+        retried = [r for r in recs if r.get("outcome") == "retry"]
+        last = max(recs, key=lambda r: r.get("attempt", 0))
+        classes = sorted({r.get("error_class") for r in recs
+                          if r.get("error_class")})
+        status = ("converged" if last.get("outcome") == "ok"
+                  else f"gave up ({last.get('error_class', '?')})")
+        lines.append(
+            f"{indent}resilience {site}: {len(recs)} attempt"
+            f"{'s' if len(recs) != 1 else ''}"
+            + (f", {len(retried)} retried"
+               f" [{', '.join(classes)}]" if retried else "")
+            + f" -> {status}")
+    for r in records:
+        kind = r.get("kind")
+        if kind == "attempt":
+            continue
+        if kind == "deadline":
+            lines.append(f"{indent}resilience {r.get('site')}: soft "
+                         f"deadline overrun — wall "
+                         f"{_fmt(r.get('wall_s'), ' s')} > "
+                         f"{_fmt(r.get('deadline_s'), ' s')} (advisory)")
+        elif kind == "suppressed":
+            lines.append(f"{indent}resilience {r.get('site')}: "
+                         f"suppressed {r.get('error_class', '?')} error "
+                         f"({str(r.get('error', ''))[:80]})")
+        elif kind == "preflight":
+            lines.append(f"{indent}resilience {r.get('site')}: preflight "
+                         f"rpc probe "
+                         f"{_fmt(r.get('rpc_probe_s'), ' s')}")
+        elif kind == "cancel":
+            lines.append(f"{indent}resilience {r.get('site')}: cancelled "
+                         f"at round boundary (deferred "
+                         f"{r.get('signal', '?')})")
+        else:
+            lines.append(f"{indent}resilience {r.get('site')}: {kind}")
+    return "\n".join(lines) + "\n"
+
+
+def _resilience_summary(records) -> tuple[dict, dict]:
+    """(retries per site, suppressed counts per error class) for one
+    artifact's resilience records — the two tunnel-health signals worth
+    diffing round-over-round."""
+    retries: dict[str, int] = {}
+    suppressed: dict[str, int] = {}
+    for r in records or []:
+        kind = r.get("kind")
+        if kind == "attempt" and r.get("outcome") == "retry":
+            site = str(r.get("site"))
+            retries[site] = retries.get(site, 0) + 1
+        elif kind == "suppressed":
+            cls = str(r.get("error_class") or "?")
+            suppressed[cls] = suppressed.get(cls, 0) + 1
+    return retries, suppressed
+
+
+def diff_resilience(a, b) -> list[str]:
+    """Tunnel-health drift between two artifacts' resilience records:
+    one line per site whose retry count changed and per suppressed
+    error class whose count changed. Empty when both rounds look
+    equally healthy — two clean rounds add no noise to a DRIFT block;
+    a round that suddenly needed retries shows up right next to the
+    manifest drift that may explain it."""
+    ra, sa = _resilience_summary(a)
+    rb, sb = _resilience_summary(b)
+    lines: list[str] = []
+    for site in sorted(set(ra) | set(rb)):
+        if ra.get(site, 0) != rb.get(site, 0):
+            lines.append(f"retries at {site}: "
+                         f"{ra.get(site, 0)} -> {rb.get(site, 0)}")
+    for cls in sorted(set(sa) | set(sb)):
+        if sa.get(cls, 0) != sb.get(cls, 0):
+            lines.append(f"suppressed {cls} errors: "
+                         f"{sa.get(cls, 0)} -> {sb.get(cls, 0)}")
+    return lines
+
+
+def render_ledgers(paths: list[str]) -> str:
+    """``inspect ledger [FILE...]``: per-artifact manifest blocks plus
+    DRIFT lines between each consecutive pair that both carry a
+    manifest — differing jax versions, platforms, or armed environments
+    between compared rounds must jump off the page. The same pairwise
+    blocks carry RESIL lines (``diff_resilience``) when the rounds'
+    retry/suppression profiles differ — a tunnel-health regression
+    lands beside the environment change that may explain it."""
+    entries = [load_ledger(p) for p in paths]
+    lines: list[str] = []
+    for ent in entries:
+        lines.append(f"== {os.path.basename(ent['file'])} ==")
+        lines.append(render_manifest(ent["manifest"]).rstrip("\n"))
+        if ent["compile_seconds"] is not None \
+                or ent["hbm_peak_bytes"] is not None:
+            lines.append(
+                f"  compile {_fmt(ent['compile_seconds'], ' s')}  "
+                f"hbm peak {_fmt(ent['hbm_peak_bytes'], ' B')}")
+        res = render_resilience(ent.get("resilience") or [])
+        if res:
+            lines.append(res.rstrip("\n"))
+    prev = None
+    for ent in entries:
+        if ent["manifest"] is None:
+            continue
+        if prev is not None:
+            drift = diff_manifests(prev["manifest"], ent["manifest"])
+            a = os.path.basename(prev["file"])
+            b = os.path.basename(ent["file"])
+            lines.append(f"-- {a} -> {b} --")
+            if drift:
+                for d in drift:
+                    lines.append(f"  DRIFT {d['key']}: "
+                                 f"{_fmt(d['a'])} -> {_fmt(d['b'])}")
+            else:
+                lines.append("  no environment drift")
+            for r in diff_resilience(prev.get("resilience"),
+                                     ent.get("resilience")):
+                lines.append(f"  RESIL {r}")
+        prev = ent
+    if not entries:
+        lines.append("no artifacts given")
+    return "\n".join(lines) + "\n"
+
+# ---------------------------------------------------------------------------
+# xprof cross-check: the device timeline of a torch.profiler trace vs the
+# reconstructed attribution.
+#
+# The runner profiles one plain rep under torch.profiler (CPU and CUDA
+# activities) and exports it as a Chrome trace, ``*.pt.trace.json``, into
+# the logdir. Its device events are the complete ("ph": "X") events of
+# the categories below, timed on the card by CUPTI; each names its card in
+# ``args.device``, and ``deviceProperties`` names the cards.
+
+#: Chrome-trace categories of the events that ran on the card.
+DEVICE_EVENT_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def chrome_trace_device_events(path: str) -> dict | None:
+    """The device timeline of one ``torch.profiler`` Chrome trace:
+    ``{"plane", "span_s", "busy_s", "events"}`` for the card whose device
+    events span the widest window (first event's start to the last one's
+    end), where ``busy_s`` is the union of its events' intervals. None
+    when the trace has no device events (a CPU profile) or does not
+    parse."""
+    try:
+        with open(path) as fh:
+            blob = json.load(fh)
+    except (OSError, ValueError):
+        return None
+    if not isinstance(blob, dict):
+        return None
+    names = {p.get("id"): p.get("name")
+             for p in blob.get("deviceProperties") or []
+             if isinstance(p, dict)}
+    per_dev: dict = {}
+    for e in blob.get("traceEvents") or []:
+        if not isinstance(e, dict) or e.get("ph") != "X" \
+                or e.get("cat") not in DEVICE_EVENT_CATEGORIES:
+            continue
+        try:
+            ts, dur = float(e["ts"]), float(e.get("dur", 0.0))
+        except (KeyError, TypeError, ValueError):
+            continue
+        dev = (e.get("args") or {}).get("device", 0)
+        per_dev.setdefault(dev, []).append((ts, ts + max(dur, 0.0)))
+    best = None
+    for dev, spans in per_dev.items():
+        spans.sort()
+        busy = 0.0
+        lo, hi = spans[0]
+        cur_lo, cur_hi = spans[0]
+        for a, b in spans[1:]:
+            hi = max(hi, b)
+            if a > cur_hi:
+                busy += cur_hi - cur_lo
+                cur_lo, cur_hi = a, b
+            else:
+                cur_hi = max(cur_hi, b)
+        busy += cur_hi - cur_lo
+        span = (hi - lo) * 1e-6
+        if best is None or span > best["span_s"]:
+            name = names.get(dev)
+            best = {"plane": f"cuda:{dev}" + (f" ({name})" if name else ""),
+                    "span_s": span, "busy_s": busy * 1e-6,
+                    "events": len(spans)}
+    return best
+
+
+def xprof_report(*, label: str, logdir: str,
+                 profiled_wall_s: float | None,
+                 reconstructed_s: float | None,
+                 error: str | None = None,
+                 error_class: str | None = None) -> dict:
+    """Build (and record) the divergence report for one profiled rep.
+
+    ``source`` says what the profiled side IS: "cupti-device-span" when
+    the newest ``*.pt.trace.json`` under ``logdir`` holds device events,
+    "host-wall(profiled)" when only the host wall around the profiled
+    rep exists (a CPU run). The two are labelled, never blended; the
+    reconstructed side stays the source of truth either way. The keys
+    are the reference's."""
+    device = None
+    try:
+        traces = sorted(glob.glob(os.path.join(logdir, "**",
+                                               "*.pt.trace.json"),
+                                  recursive=True), key=os.path.getmtime)
+        if traces:
+            device = chrome_trace_device_events(traces[-1])
+    except OSError:
+        device = None
+    if device is not None:
+        total, source = device["span_s"], "cupti-device-span"
+    elif profiled_wall_s is not None:
+        total, source = profiled_wall_s, "host-wall(profiled)"
+    else:
+        total = source = None
+    div = None
+    if total is not None and reconstructed_s:
+        div = (total - reconstructed_s) / reconstructed_s * 100.0
+    report = {
+        "label": label, "logdir": logdir,
+        "profiled_wall_s": profiled_wall_s,
+        "device_span_s": device["span_s"] if device else None,
+        "device_plane": device["plane"] if device else None,
+        "reconstructed_s": reconstructed_s,
+        "total_s": total, "source": source,
+        "divergence_pct": div, "error": error,
+        "error_class": error_class,
+    }
+    _XPROF.append(report)
+    return report
+
+
+def render_xprof(report: dict) -> str:
+    if report.get("error"):
+        cls = report.get("error_class")
+        cls_s = f" [{cls}]" if cls else ""
+        return (f"xprof {report['label']}: unavailable{cls_s} "
+                f"({report['error']})")
+    div = report.get("divergence_pct")
+    div_s = f"{div:+.1f}%" if div is not None else "n/a"
+    total = report.get("total_s")
+    recon = report.get("reconstructed_s")
+    return (f"xprof {report['label']}: profiled "
+            f"{_fmt(total, ' s')} [{report.get('source')}] vs "
+            f"reconstructed rep {_fmt(recon, ' s')} -> divergence "
+            f"{div_s} (cross-check only; reconstructed cells remain "
+            f"the source of truth)")

@@ -484,7 +484,7 @@ def summarize_trace(path: str) -> str:
     """Round/rank critical-path summary of a trace file
     (``cli inspect trace <file>``). Works on the JSONL log; a Perfetto
     ``.trace.json`` should be opened in the Perfetto UI instead.
-    Multiple files merge via :func:`tpu_aggcomm.obs.metrics
+    Multiple files merge via :func:`tpu_aggcomm_torch.obs.metrics
     .summarize_traces`."""
     return summarize_events(load_events(path))
 

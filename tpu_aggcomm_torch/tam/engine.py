@@ -13,7 +13,7 @@ per-phase byte volumes and the numpy proxy-path oracle. On one device the
 route runs as three gather hops over the rank axis
 (:meth:`tpu_aggcomm_torch.backends.torch_sim.TorchSimBackend._tam_rep`).
 The two-level mesh engines (``tam_two_level_*``) need one device per rank
-and belong to the multi-device tier (ROADMAP.md, queue A item 16).
+and belong to the multi-device tier (ROADMAP.md, queue A item 8).
 
 - **proxy oracle**: the faithful 5-phase structure — P1 size exchange is
   static here (the reference's runtime size handshake, l_d_t.c:996-1041,
