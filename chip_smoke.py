@@ -112,7 +112,25 @@ first failure (no phase's failure is caught):
    wall; the shutdown's drain record replayed ``REPRODUCED``, and a
    second server recovering from the journal pre-warms every shape and
    answers its first README request as a hit;
-9. a ``measured phases {...}`` line (each decomposition in
+9. slice 9's path (``tune_synth``), everything in a temporary
+   directory: first K2 on the committed synthesized methods m=101-103
+   (``SYNTH_r01.json``: one round carrying every data edge) at the README
+   shape and at n=256 a=16 c=16 against its plain version, m=103 timed
+   beside its bound; then, K2's count zeroed, ``tune`` racing 12
+   candidates (m=1, 3, 7 x ``-a`` 4, 14 x ``-c`` 3, 8) at n=32 d=2048
+   (the tuner's defaults: chains of 50 and 1050 reps, 3 trials a batch)
+   on fresh chained device samples on ``torch_sim`` and on ``cuda_fused``
+   (every sample K2 launches replayed from CUDA graphs), each artifact
+   validated and replayed ``REPRODUCED``, with its candidates, batches,
+   eliminations, winner, captures and race wall on a ``# tune`` line;
+   ``run --auto --chained --verify`` applying the ``torch_sim`` winner;
+   ``tune --model-prune`` on the card naming the missing ``gpu``
+   calibration; ``run -m 101``, ``102``, ``103 --synth-root --verify``
+   on ``torch_sim``, ``cuda_fused`` and ``local`` at both shapes; and a
+   short ``synth`` at the README cell, its verdict (a synthesized winner
+   that validates and replays, or the named reference win) on a ``#
+   synth`` line;
+10. a ``measured phases {...}`` line (each decomposition in
    microseconds), the device busy shares, each phase's wall time, a
    ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and as
    the last line ``{"ok": true, "device": {...}}``.
@@ -1761,6 +1779,318 @@ def phase_serve(dev) -> dict:
     return out
 
 
+def cli_capture(argv, expect=(0,)) -> tuple:
+    """Run one CLI command in-process; returns (exit code, stdout,
+    stderr), both echoed. Fails unless the code is one of ``expect``."""
+    from tpu_aggcomm_torch import cli
+    print(f"$ python -m tpu_aggcomm_torch.cli {' '.join(argv)}", flush=True)
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    print(out.getvalue(), end="")
+    print("".join(f"# stderr: {ln}\n" for ln in err.getvalue().splitlines()),
+          end="")
+    print(f"# ({time.perf_counter() - t0:.1f} s, exit {rc})", flush=True)
+    check(rc in expect, f"cli {argv} exited {rc}, expected {expect}")
+    return rc, out.getvalue(), err.getvalue()
+
+
+def k2_against_plain(dev, s) -> tuple:
+    """One K2 launch of schedule ``s`` into a poisoned recv, held against
+    the plain version on the same send; returns (plan, tables, send,
+    max_abs_err) and fails unless the two are byte-equal."""
+    import torch
+
+    from tpu_aggcomm_torch.backends.lanes import from_reference
+    from tpu_aggcomm_torch.backends.torch_sim import dense_send_lanes
+    from tpu_aggcomm_torch.native.fuse import (check_fence, fuse_plan,
+                                               fused_rep, fused_rep_plain,
+                                               plan_tables)
+
+    plan = fuse_plan(s)
+    tabs = plan_tables(plan, dev)
+    send = from_reference(dense_send_lanes(s.pattern, 0), dev)
+    plain = fused_rep_plain(send, tabs)
+    got = fused_rep(send, tabs, out=torch.full_like(plain, -0x5A5A5A5B))
+    check_fence(tabs)
+    err = max_abs_err(got, plain)
+    check(err == 0 and torch.equal(got, plain),
+          f"K2 {s.name} n={s.pattern.nprocs} a={s.pattern.cb_nodes} "
+          f"c={s.pattern.comm_size}: kernel != plain")
+    return plan, tabs, send, err
+
+
+def synth_k2_check(dev, synth_root: str) -> list:
+    """K2 on the committed synthesized methods m=101-103 (one round
+    carrying every data edge, window=drain) at the README cell and at
+    n=256 a=16 c=16: one launch into a poisoned recv against the plain
+    version, and m=103's device time beside its bound at each shape."""
+    from tpu_aggcomm_torch.core.methods import compile_method
+    from tpu_aggcomm_torch.core.pattern import AggregatorPattern
+    from tpu_aggcomm_torch.native.fuse import fused_rep, fused_rep_plain
+    from tpu_aggcomm_torch.synth import ensure_registered
+
+    check(sorted(ensure_registered(synth_root)) == [101, 102, 103],
+          "the committed SYNTH_r01.json did not register m=101-103")
+    rows = []
+    for cfg in (README, dict(n=256, a=16, d=2048, c=16)):
+        for m in (101, 102, 103):
+            s = compile_method(m, AggregatorPattern(
+                cfg["n"], cfg["a"], data_size=cfg["d"], comm_size=cfg["c"]))
+            plan, tabs, send, err = k2_against_plain(dev, s)
+            check(len(plan.rounds) == 1
+                  and plan.n_edges == cfg["n"] * cfg["a"],
+                  f"m={m} {cfg}: not one round of n*a edges")
+            row = {"method": m, "shape": cfg, "edges": plan.n_edges,
+                   "max_abs_err": err}
+            if m == 103:
+                n, d = cfg["n"], cfg["d"]
+                # each delivered row read once and written once, and the
+                # rest of the recv arena zeroed
+                nbytes = 2 * plan.n_edges * d + (
+                    n * tabs.n_recv_rows - plan.n_edges) * d
+                row.update(timings(lambda: fused_rep(send, tabs),
+                                   lambda: fused_rep_plain(send, tabs),
+                                   200, 20, eager_iters=500,
+                                   plain_eager_iters=50),
+                           bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                           bound_by="bytes")
+            rows.append(row)
+    for r in rows:
+        if "ms" in r:
+            print(f"# K2 synthesized m=103 n={r['shape']['n']} "
+                  f"({r['edges']} edges, one round): {r['ms'] * 1e3:.3f} "
+                  f"us device, {r['eager_ms'] * 1e3:.3f} eager, plain "
+                  f"{r['plain_ms'] * 1e3:.3f}, bound "
+                  f"{r['bound_ms'] * 1e3:.3f} us", flush=True)
+    print(f"K2 == plain into a poisoned recv for m=101-103 at n=32 a=14 "
+          f"c=3 and n=256 a=16 c=16 ({len(rows)} cells)", flush=True)
+    return rows
+
+
+TUNE_GRID = dict(methods=(1, 3, 7), cb_nodes=(4, 14), comm_sizes=(3, 8),
+                 agg_types=(1,), nprocs=32, data_size=2048, proc_node=1)
+
+
+def tune_grid_k2_check(dev) -> int:
+    """K2 against its plain version at every cell the cuda_fused race
+    samples (``TUNE_GRID``, candidates from the tuner's own
+    ``build_space`` and schedules compiled as its sampler compiles
+    them): the race's samples are timed chains that verify nothing."""
+    from tpu_aggcomm_torch.core.methods import compile_method
+    from tpu_aggcomm_torch.core.pattern import AggregatorPattern
+    from tpu_aggcomm_torch.tune.space import build_space
+
+    g = TUNE_GRID
+    cands = build_space(g["methods"], g["cb_nodes"], g["comm_sizes"],
+                        g["agg_types"], nprocs=g["nprocs"])
+    for c in cands:
+        k2_against_plain(dev, compile_method(c.method, AggregatorPattern(
+            nprocs=g["nprocs"], cb_nodes=c.cb_nodes,
+            data_size=g["data_size"], proc_node=g["proc_node"],
+            comm_size=c.comm_size, placement=c.agg_type)))
+    print(f"K2 == plain into a poisoned recv at every cell of the tune "
+          f"grid ({', '.join(c.cid for c in cands)})", flush=True)
+    return len(cands)
+
+
+def tune_line(label: str, blob: dict, text: str, t_wall: float) -> dict:
+    """One ``tune`` run's numbers: the race's from its artifact, the race
+    wall and the graph captures (printed, not stored) from its output."""
+    import re
+    import statistics
+    race = blob["race"]
+    win = race["winner"]
+    cap = re.search(r"race wall ([0-9.]+) s, (\d+) CUDA graph capture\(s\) "
+                    r"in ([0-9.]+) s", text)
+    rec = {"backend": label, "candidates": len(race["order"]),
+           "batches": race["batches_run"],
+           "eliminations": len(race["eliminations"]), "winner": win,
+           "winner_us_per_rep": statistics.median(
+               x for b in race["samples"][win] for x in b) * 1e6,
+           "captures": int(cap.group(2)), "capture_s": float(cap.group(3)),
+           "race_wall_s": float(cap.group(1)), "wall_s": t_wall,
+           "max_batches": race["max_batches"],
+           "batch_trials": race["batch_trials"]}
+    print(f"# tune {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def phase_tune_synth(dev) -> dict:
+    """Slice 9's path, in a temporary directory, K2's launch count zeroed
+    after the kernel check and read at the end: the tuner racing 12
+    candidates on fresh device samples (torch_sim, then cuda_fused: every
+    sample K2 launches replayed from CUDA graphs) at n=32 d=2048, each
+    artifact replayed REPRODUCED, K2 held against its plain version at
+    every cell of that grid; ``run --auto`` applying each backend's
+    winner with --verify; ``--model-prune`` on the card naming the
+    missing gpu calibration; m=101-103 from a copy of SYNTH_r01.json on
+    torch_sim, cuda_fused and local at the README cell and n=256 a=16
+    c=16, verified; a short ``synth`` at the README cell, whose verdict
+    (a synthesized winner that validates and replays, or the named
+    reference win) is the result."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tpu_aggcomm_torch.core.methods import METHODS
+    from tpu_aggcomm_torch.native.fuse import fused_rep
+    from tpu_aggcomm_torch.obs import ledger
+    from tpu_aggcomm_torch.obs.regress import validate_synth, validate_tune
+
+    repo = Path(__file__).resolve().parent
+    ids = set(METHODS)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="tune_synth_") as tmp:
+        tmp = Path(tmp)
+        synth_root = tmp / "synth"
+        synth_root.mkdir()
+        shutil.copy(repo / "SYNTH_r01.json", synth_root)
+        out["k2"] = synth_k2_check(dev, str(synth_root))
+        out["k2_tune_grid_cells"] = tune_grid_k2_check(dev)
+        fused_rep.launches = 0
+
+        g = TUNE_GRID
+        iters_big, max_batches = 1050, 6
+        grid = ["-n", str(g["nprocs"]), "-d", str(g["data_size"]), "-p",
+                str(g["proc_node"]), "--methods", ",".join(
+                    map(str, g["methods"])), "--cb-nodes", ",".join(
+                    map(str, g["cb_nodes"])), "--comm-sizes", ",".join(
+                    map(str, g["comm_sizes"])), "--agg-types", ",".join(
+                    map(str, g["agg_types"])), "--iters-big", str(iters_big),
+                "--max-batches", str(max_batches)]
+        out["tune"] = []
+        for backend in ("torch_sim", "cuda_fused"):
+            root = tmp / backend
+            root.mkdir()
+            before = fused_rep.launches
+            t0 = time.perf_counter()
+            _, text, _ = cli_capture(["tune", "--backend", backend, *grid,
+                                      "--tune-root", str(root)])
+            wall = time.perf_counter() - t0
+            path = root / f"TUNE_{backend}_n32_d2048_p1_a2m.json"
+            blob = json.loads(path.read_text())
+            check(validate_tune(blob) == [], f"{path.name} invalid")
+            rec = tune_line(backend, blob, text, wall)
+            rec.update(iters_big=iters_big,
+                       k2_launches=fused_rep.launches - before)
+            check(rec["candidates"] == 12, f"tune {backend}: not 12")
+            check(rec["captures"] >= 1,
+                  f"tune {backend}: no CUDA graph was captured")
+            if backend == "cuda_fused":
+                check(rec["k2_launches"] > 0,
+                      "tune --backend cuda_fused launched no K2")
+            else:
+                check(rec["k2_launches"] == 0, "torch_sim launched K2")
+            check(blob["manifest"]["device_kind"]
+                  == torch.cuda.get_device_name(0),
+                  "the tune manifest does not name the card")
+            _, text, _ = cli_capture(["tune", "--replay", str(path)])
+            check("-> REPRODUCED" in text, f"{path.name} did not replay")
+            out["tune"].append(rec)
+        man = ledger.manifest()
+        check(man["versions"]["torch"] == torch.__version__
+              and man["versions"]["cuda"] == torch.version.cuda,
+              f"manifest versions {man['versions']} != torch's")
+
+        out["auto"] = {}
+        for backend in ("torch_sim", "cuda_fused"):
+            win = json.loads((tmp / backend / f"TUNE_{backend}_n32_d2048_"
+                              "p1_a2m.json").read_text())["winner"]
+            _, text, _ = cli_capture(
+                ["-m", "1", "-d", "2048", "--backend", backend, "--chained",
+                 "--verify", "--auto", "--tune-root", str(tmp / backend),
+                 "--results-csv", str(tmp / "auto.csv")])
+            want = (f"auto: tuned -m {win['method']} -a {win['cb_nodes']} "
+                    f"-c {win['comm_size']} -t {win['agg_type']} from ")
+            check(want in text,
+                  f"run --auto did not apply the {backend} winner")
+            check(f"cb_nodes = {win['cb_nodes']}," in text
+                  and f"comm_size = {win['comm_size']}," in text,
+                  f"run --auto on {backend} ran other flags than the "
+                  f"winner's")
+            out["auto"][backend] = dict(win)
+
+        (tmp / "prune").mkdir()
+        _, text, err = cli_capture(
+            ["tune", "--backend", "torch_sim", "--model-prune", "-n", "32",
+             "-d", "2048", "--methods", "1,3", "--cb-nodes", "14",
+             "--comm-sizes", "3", "--max-batches", "1", "--iters-big",
+             "250", "--tune-root", str(tmp / "prune")])
+        check(err.count("PREDICT_r11.json has no 'gpu' calibration — "
+                        "racing the full space") == 1
+              and "racing 2 candidate(s)" in text,
+              "tune --model-prune on the card did not name the missing "
+              "gpu calibration")
+
+        runs = 0
+        for cfg in (README, dict(n=256, a=16, d=2048, c=16)):
+            for backend in ("torch_sim", "cuda_fused", "local"):
+                for m in (101, 102, 103):
+                    argv = ["-n", str(cfg["n"]), "-m", str(m), "-a",
+                            str(cfg["a"]), "-d", str(cfg["d"]), "-c",
+                            str(cfg["c"]), "--backend", backend,
+                            "--synth-root", str(synth_root), "--verify",
+                            "--results-csv", str(tmp / "synth.csv")]
+                    _, text, _ = cli_capture(argv)
+                    check("| Synthesized " in text,
+                          f"run -m {m} on {backend} printed no result")
+                    runs += 1
+        out["synth_runs"] = runs
+
+        t0 = time.perf_counter()
+        rc, text, err = cli_capture(
+            ["synth", "--backend", "torch_sim", "-n", "32", "-a", "14",
+             "-c", "3", "-d", "2048", "--init", "16", "--mutate-rounds",
+             "1", "--top-k", "2", "--max-batches", "4", "--synth-root",
+             str(synth_root)], expect=(0, 1))
+        import re
+        wall = re.search(r"search and race wall ([0-9.]+) s", text)
+        rec = {"race_wall_s": float(wall.group(1)),
+               "wall_s": time.perf_counter() - t0, "exit": rc}
+        if rc == 0:
+            path = Path(text.split("synth artifact written: ")[1].split()[0])
+            blob = json.loads(path.read_text())
+            check(validate_synth(blob) == [], f"{path.name} invalid")
+            _, replay, _ = cli_capture(["synth", "--replay", str(path)])
+            check("-> REPRODUCED" in replay, f"{path.name} did not replay")
+            sr, win = blob["search"], blob["winner"]
+            rec.update(evaluated=sr["evaluated"], space=sr["space_size"],
+                       checker_refutations=sr["pruned"]["check"],
+                       pruned=sr["pruned"], finalists=len(sr["finalists"]),
+                       winner=win["cid"],
+                       winner_us_per_rep=win["median_s"] * 1e6,
+                       verdict=f"synthesized winner, {path.name} "
+                               f"REPRODUCED")
+        else:
+            check("won the race — no synthesized schedule beat the field"
+                  in err, "synth exited 1 without the reference-win line")
+            # a reference win writes no artifact: its output is the record
+            searched = re.search(r"searched (\d+)/(\d+) compositions "
+                                 r"\(pruned: (\{[^}]*\})\), (\d+) finalist",
+                                 text)
+            pruned = json.loads(searched.group(3).replace("'", '"'))
+            winner = re.search(r"winner: (\S+) \(median ([0-9.]+) us/rep\)",
+                               text)
+            rec.update(evaluated=int(searched.group(1)),
+                       space=int(searched.group(2)),
+                       checker_refutations=pruned["check"], pruned=pruned,
+                       finalists=int(searched.group(4)),
+                       winner=winner.group(1),
+                       winner_us_per_rep=float(winner.group(2)),
+                       verdict="a reference method won; no artifact")
+        print(f"# synth {json.dumps(rec)}", flush=True)
+        out["synth"] = rec
+    for mid in set(METHODS) - ids:
+        del METHODS[mid]
+    out["counts"] = {"fused_rep": fused_rep.launches}
+    print(f"# tune_synth launches: {json.dumps(out['counts'])}", flush=True)
+    check(fused_rep.launches > 0, "K2 was not launched by tune_synth")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1804,10 +2134,11 @@ def main() -> int:
     faults = timed("faults_sweep", phase_faults_sweep, dev)
     tam_obs = timed("tam_obs", phase_tam_obs, dev)
     serve = timed("serve", phase_serve, dev)
-    counts["fused_rep"] += (tam_obs["counts"]["fused_rep"]
-                            + serve["counts"]["fused_rep"])
-    main_path["reps"]["fused_rep"] += (tam_obs["counts"]["fused_rep"]
-                                       + serve["counts"]["fused_rep"])
+    tune_synth = timed("tune_synth", phase_tune_synth, dev)
+    later_k2 = (tam_obs["counts"]["fused_rep"] + serve["counts"]["fused_rep"]
+                + tune_synth["counts"]["fused_rep"])
+    counts["fused_rep"] += later_k2
+    main_path["reps"]["fused_rep"] += later_k2
     busy = {b: round(r["busy_share"], 6)
             for b, r in tam_obs["xprof"].items()}
     print(f"device busy share of one profiled README rep (union of the "
@@ -1832,6 +2163,13 @@ def main() -> int:
              "tpu_aggcomm/native/fuse.py:390", k2),
             ("dma_steps", "tpu_aggcomm_torch/csrc/dma_steps.cu",
              "tpu_aggcomm/backends/pallas_dma.py:420", k3_row))]
+    # K2 on the synthesized one-round incasts (m=101-103, slice 9)
+    incast = tune_synth["k2"]
+    kernels[1]["synthesized"] = [
+        {k: v for k, v in r.items() if k != "shape"}
+        | {"n": r["shape"]["n"]} for r in incast]
+    kernels[1]["matches_plain"] = kernels[1]["matches_plain"] and all(
+        r["max_abs_err"] == 0 for r in incast)
     # the slow-rank delay replaces an XLA fori_loop, not a pallas_call;
     # its row is the README shape's slow:r2*8, n=1024's under "large"
     delay = faults["delay"]

@@ -739,3 +739,103 @@ def test_cuda_fused_execute_batch_is_one_launch_a_request(cuda):
     res = executor.execute_batch(chain, reqs)
     assert fused_rep.launches - before == 4
     assert all(r["verified"] is True and r["error"] is None for r in res)
+
+
+# ---------------------------------------------------------------------------
+# the tuner's samplers and the synthesized methods on the card
+
+
+@pytest.fixture
+def synth_registered():
+    """Registers the committed m=101-103 and removes them afterwards."""
+    import os
+
+    from tpu_aggcomm_torch.core.methods import METHODS
+    from tpu_aggcomm_torch.synth import ensure_registered
+
+    before = set(METHODS)
+    ensure_registered(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    yield
+    for mid in set(METHODS) - before:
+        del METHODS[mid]
+
+
+@pytest.mark.parametrize("backend", ["torch_sim", "cuda_fused"])
+def test_samplers_give_fresh_device_samples(cuda, backend):
+    """Each batch is new differenced trials of CUDA graph replays; on
+    cuda_fused K2's count grows by the reps each batch replays (a warm-up
+    of both chains, then the trials), plus the first eager warm-up rep."""
+    from tpu_aggcomm_torch.obs import ledger
+    from tpu_aggcomm_torch.tune import measure
+
+    make = measure.make_cuda_fused_sampler if backend == "cuda_fused" \
+        else measure.make_torch_sim_sampler
+    small, big = 10, 60
+    sampler = make(nprocs=32, data_size=2048, proc_node=1, device="cuda",
+                   iters_small=small, iters_big=big, batch_trials=2)
+    assert ledger.manifest()["device_kind"] == torch.cuda.get_device_name(0)
+    cid = "m1:a14:c3:t1"
+    caps = len([r for r in ledger.compile_records()
+                if r["kind"] == "graph-capture"])
+    deltas, batches = [], []
+    for batch in range(3):
+        before = fused_rep.launches
+        batches.append(sampler(cid, batch))
+        deltas.append(fused_rep.launches - before)
+    assert all(len(b) == 2 and all(x > 0 for x in b) for b in batches)
+    assert batches[0] is not batches[1] and batches[1] != batches[2]
+    new_caps = [r for r in ledger.compile_records()
+                if r["kind"] == "graph-capture"][caps:]
+    # one chain family: a graph of 50 reps and one of the 10 left over,
+    # captured in the first batch's warm-up, outside the trials
+    assert sorted(r["reps"] for r in new_caps) == [small, 50]
+    if backend == "torch_sim":
+        assert deltas == [0, 0, 0]
+    else:
+        assert deltas[0] % (small + big) == 1          # the eager warm-up
+        assert all(d % (small + big) == 0 and d >= 3 * (small + big)
+                   for d in deltas[1:])
+
+
+@pytest.mark.parametrize("shape", [(32, 14, 3), (256, 16, 16)])
+@pytest.mark.parametrize("method", [101, 102, 103])
+def test_synthesized_methods_on_k2_equal_plain(cuda, synth_registered,
+                                               method, shape):
+    """The committed one-round incasts (window=drain), one K2 launch into
+    a poisoned recv, byte-equal to the plain version, and verified."""
+    n, a, c = shape
+    s = compile_method(method, AggregatorPattern(n, a, data_size=2048,
+                                                 comm_size=c))
+    plan = fuse_plan(s)
+    assert len(plan.rounds) == 1 and plan.n_edges == n * a
+    tabs = plan_tables(plan, cuda)
+    send = from_reference(dense_send_lanes(s.pattern, 0), cuda)
+    before = fused_rep.launches
+    got = fused_rep(send, tabs, out=_poisoned(tabs, send))
+    torch.cuda.synchronize()
+    assert fused_rep.launches == before + 1
+    check_fence(tabs)
+    assert torch.equal(got, fused_rep_plain(send, tabs))
+    recv, _ = CudaFusedBackend(device="cuda").run(s, verify=True)
+    assert sum(r is not None for r in recv) == a
+
+
+def test_tiny_cuda_fused_tune_writes_an_artifact_that_replays(cuda,
+                                                               tmp_path,
+                                                               capsys):
+    from tpu_aggcomm_torch import cli
+    root = str(tmp_path)
+    before = fused_rep.launches
+    assert cli.main(["tune", "--backend", "cuda_fused", "-n", "8", "-d",
+                     "64", "--methods", "1,3", "--cb-nodes", "2,3",
+                     "--comm-sizes", "2", "--iters-small", "10",
+                     "--iters-big", "60", "--batch-trials", "2",
+                     "--max-batches", "2", "--tune-root", root]) == 0
+    assert fused_rep.launches > before
+    out = capsys.readouterr().out
+    assert "measured, chained cuda_fused" in out
+    assert "CUDA graph capture(s)" in out
+    path = f"{root}/TUNE_cuda_fused_n8_d64_p1_a2m.json"
+    assert cli.main(["tune", "--replay", path]) == 0
+    assert "-> REPRODUCED" in capsys.readouterr().out

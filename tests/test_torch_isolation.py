@@ -63,6 +63,11 @@ def test_every_module_imports_and_runs_m1_on_cpu(poisoned):
     mods = _port_modules()
     assert "tpu_aggcomm_torch.backends.cuda_fused" in mods
     assert "tpu_aggcomm_torch.backends.cuda_dma" in mods
+    for m in ("tune.space", "tune.race", "tune.cache", "tune.measure",
+              "synth.primitives", "synth.search", "synth.register",
+              "synth.artifact", "analysis.check", "obs.regress",
+              "model.artifact"):
+        assert f"tpu_aggcomm_torch.{m}" in mods
     code = f"""
 import importlib, sys
 for m in {mods!r}:

@@ -108,7 +108,8 @@ def test_resume_reruns_and_names_a_torch_or_card_change(tmp_path, capsys,
     real = ledger.manifest()
     drifted = dict(real, device_kind="NVIDIA H100 80GB HBM3",
                    versions=dict(real["versions"], torch="9.9.9+cu999"))
-    monkeypatch.setattr(ledger, "manifest", lambda: dict(drifted))
+    monkeypatch.setattr(ledger, "manifest",
+                        lambda device=None: dict(drifted))
     capsys.readouterr()
     _sweep(tmp_path, "r.csv", [*argv, "--resume"])
     out = capsys.readouterr().out
@@ -195,9 +196,27 @@ def test_sweep_runs_on_the_card_unless_asked(monkeypatch, tmp_path):
     assert str(e.value.code).startswith("NoCudaDeviceError: ")
 
 
+@pytest.mark.parametrize("argv", [["--auto"],
+                                  ["--auto", "--tune-root", "TMP"]])
+def test_sweep_auto_without_a_cache_names_the_miss_and_runs(tmp_path,
+                                                            capsys, argv):
+    """``--auto`` (and ``--tune-root``) on a sweep with no tuned entry: a
+    named ``auto: no tuned entry at ...`` line, then the sweep of -m runs."""
+    path = tmp_path / "r.csv"
+    root = str(tmp_path / "tune")
+    argv = [root if a == "TMP" else a for a in argv]
+    assert cli.main(["sweep", "-n", "8", "-a", "3", "-d", "64", "-i", "1",
+                     "--device", "cpu", "--comm-sizes", "2",
+                     "--results-csv", str(path), *argv]) == 0
+    cap = capsys.readouterr()
+    where = root if "--tune-root" in argv else "."
+    assert (f"auto: no tuned entry at {where}/TUNE_torch_sim_n8_d64_p1_a2m"
+            f".json; falling back to -m 1") in cap.err
+    assert "RUN_OPTS: -a 3 -d 64 -c 2 -m 1 -i 1" in cap.out
+    assert len(_rows(path)) == 2
+
+
 @pytest.mark.parametrize("argv,needle", [
-    (["--auto"], "NotPortedError: sweep --auto is not ported"),
-    (["--tune-root", "."], "NotPortedError: sweep --tune-root is not"),
     (["--metrics-port", "0"], "NotPortedError: sweep --metrics-port is"),
     (["--fault", "bogus"], "sweep --fault: bad fault token 'bogus'"),
     (["--fault", "slow:r1*2", "--measured-phases"],

@@ -140,7 +140,7 @@ def measure() -> dict:
         # the reference's parsed-schema v3 fields: the environment the
         # value was taken on (torch, CUDA, nvcc, the card) and the host
         # walls of the chain's warm-up (kernel build included)
-        "manifest": ledger.manifest(),
+        "manifest": ledger.manifest(device=dev),
         "compile_seconds": ledger.total_compile_seconds(),
     }
 

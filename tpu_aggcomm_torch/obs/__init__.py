@@ -18,4 +18,13 @@ run ledger, copied from ``tpu_aggcomm/obs/`` (import paths rewritten).
   phase attribution of the serve journal, the batch-fill arithmetic the
   server's counters share (``padded_slots`` pads ``torch_sim`` batches),
   shape mix and arrivals.
+- :mod:`tpu_aggcomm_torch.obs.regress` — the schema validators of the
+  tuner's and the synthesizer's artifacts (``TUNE_*.json``,
+  ``SYNTH_r*.json``).
+
+The package re-exports :func:`atomic_write`, as the reference's does.
 """
+
+from tpu_aggcomm_torch.obs.atomic import atomic_write
+
+__all__ = ["atomic_write"]

@@ -6,10 +6,14 @@ flight recorder need:
 - **manifest** — environment provenance captured once per process. The
   reference names its jax, jaxlib and libtpu versions; the port names
   what it runs on instead: python, torch, the CUDA version torch was
-  built for, ``nvcc``'s release (None without the toolkit), the card
-  (``torch.cuda.get_device_name``, None without one), the git sha and
-  the environment variable that picks the card. It never imports jax
-  and names no jax or libtpu version.
+  built for, ``nvcc``'s release (None without the toolkit), the git sha
+  and the environment variable that picks the card. Like the
+  reference's, collecting it imports nothing of the framework: torch's
+  versions are read from its installed ``torch/version.py``. The card
+  (``device_kind``) is a device fact: ``manifest(device=...)`` records
+  it for a CUDA device, and every site that fingerprints (the sweep
+  journal, the server, the tuner, ``--auto``, the bench line) passes its
+  device there. It never imports jax and names no jax or libtpu version.
 - **drift** — :func:`diff_manifests`, copied: the flattened keys that
   differ between two manifests, timestamps and the git sha excluded. A
   resumed sweep names these when it re-runs a cell recorded under
@@ -89,10 +93,38 @@ def _nvcc_release() -> str | None:
     return found.group(1).strip() if found else None
 
 
-def _device_name() -> str | None:
-    import torch
-    return torch.cuda.get_device_name(0) if torch.cuda.is_available() \
-        else None
+def _torch_versions() -> tuple[str | None, str | None]:
+    """torch's ``__version__`` and the CUDA version it was built for
+    (``torch.version.cuda``), read from its installed ``version.py``
+    without importing torch; (None, None) where torch is not installed.
+    The values are the literals torch itself would report."""
+    import ast
+    import importlib.util
+
+    try:
+        spec = importlib.util.find_spec("torch")
+    except (ImportError, ValueError):
+        return None, None
+    dirs = list(getattr(spec, "submodule_search_locations", None) or [])
+    found: dict = {}
+    for d in dirs:
+        try:
+            with open(os.path.join(d, "version.py")) as fh:
+                tree = ast.parse(fh.read())
+        except (OSError, SyntaxError):
+            continue
+        for node in tree.body:
+            targets = node.targets if isinstance(node, ast.Assign) else \
+                [node.target] if isinstance(node, ast.AnnAssign) else []
+            for t in targets:
+                if isinstance(t, ast.Name) and isinstance(
+                        getattr(node, "value", None), ast.Constant):
+                    found[t.id] = node.value.value
+        break
+    version = found.get("__version__")
+    cuda = found.get("cuda")
+    return (str(version) if version is not None else None,
+            str(cuda) if cuda is not None else None)
 
 
 def env_summary() -> dict:
@@ -106,25 +138,32 @@ def collect_manifest() -> dict:
     callers that keep it take :func:`manifest`'s copy)."""
     global _MANIFEST
     if _MANIFEST is None:
-        import torch
+        torch_version, cuda_version = _torch_versions()
         _MANIFEST = {
             "schema": SCHEMA_VERSION,
             "python": "%d.%d.%d" % sys.version_info[:3],
             "versions": {
-                "torch": torch.__version__,
-                "cuda": torch.version.cuda,
+                "torch": torch_version,
+                "cuda": cuda_version,
                 "nvcc": _nvcc_release(),
             },
             "git_sha": _git_sha(),
             "env": env_summary(),
-            "device_kind": _device_name(),
+            "device_kind": None,
             "created_unix": time.time(),
         }
     return _MANIFEST
 
 
-def manifest() -> dict:
-    """A JSON-able copy of the process manifest."""
+def manifest(device=None) -> dict:
+    """A JSON-able copy of the process manifest. Every site that takes a
+    fingerprint passes the device it runs on: a CUDA device
+    (``"cuda"``, ``"cuda:1"``, a ``torch.device``) has the card's name
+    recorded first, so a fingerprint taken for a run on the card always
+    names the card; None or a CPU device records nothing and imports no
+    torch (``device_kind`` stays None there)."""
+    if device is not None and str(device).startswith("cuda"):
+        _record_card(device)
     m = collect_manifest()
     out = dict(m)
     out["versions"] = dict(m["versions"])
@@ -132,12 +171,25 @@ def manifest() -> dict:
     return out
 
 
+def _record_card(device) -> None:
+    """Record ``torch.cuda.get_device_name(device)`` when a card is
+    visible; a failed device query records nothing."""
+    import torch
+    try:
+        dev = torch.device(device)
+        if torch.cuda.is_available():
+            record_device(device_kind=torch.cuda.get_device_name(dev))
+    except (RuntimeError, ValueError, AssertionError):
+        pass
+
+
 def record_device(*, device_kind: str | None = None) -> None:
     """Fill the manifest's device facts: the reference's, less the
     platform and the tunnel's RPC probe (the port runs on the card, with
-    no tunnel). The runner passes the card's name, which the manifest
-    already holds from torch, so a recorded device never changes the
-    journal's fingerprint."""
+    no tunnel). The runner passes the card's name after each method, the
+    name :func:`manifest` records for a CUDA device before a journal, a
+    server or a tune key takes its fingerprint, so a recorded device
+    never changes a fingerprint taken on the card."""
     if device_kind is not None:
         collect_manifest()["device_kind"] = str(device_kind)
 

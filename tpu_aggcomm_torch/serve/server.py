@@ -237,7 +237,8 @@ class ScheduleServer:
         self._floor_params = _FLOOR_UNSET
         self._floors: dict = {}                    # shape_key -> float | None
         self._cache = CompiledChainCache()
-        self._man = ledger.manifest()
+        # the card's name is part of the chain cache's fingerprint
+        self._man = ledger.manifest(device=self._device)
         from tpu_aggcomm_torch.tune.cache import manifest_fingerprint
         self._fp = manifest_fingerprint(self._man)
 
