@@ -130,7 +130,29 @@ first failure (no phase's failure is caught):
    short ``synth`` at the README cell, its verdict (a synthesized winner
    that validates and replays, or the named reference win) on a ``#
    synth`` line;
-10. a ``measured phases {...}`` line (each decomposition in
+10. slice 10's path (``pilot_obs``), everything in a temporary
+   directory, K2's launch count zeroed first and read at its end: an
+   in-process ``ScheduleServer(device="cuda", metrics_port=0)``
+   (journalled, default backend ``torch_sim``) serves a tight skewed
+   burst at the README cell, every request verified (10x m=1 and 2x m=3
+   on ``torch_sim``, then 6x m=1 on ``cuda_fused``: a K2 launch each
+   plus the warm-up); its ``/metrics`` is scraped, validated and held to
+   ``stats()`` (request counter, batch fill); then ``cli pilot
+   JOURNAL --serve-port PORT --device cuda --max-batches 4`` runs in
+   this process against the server (campaigns raced on fresh
+   ``torch_sim`` samples on the card, promotions through the server's
+   ``swap`` op, its verify request through the normal queue), its
+   artifact validated and replayed ``REPRODUCED``, each campaign's
+   candidates, batches, winner, medians, win CI and wall and each
+   decision with its verify request's wall on a ``# pilot`` line; every
+   promoted shape's next request is served by the new method, verified;
+   6 more hot requests and a second pass (promoted targets skipped, a
+   demotion row per promotion); a lookalike record refused and the same
+   record demoting, the old method served again, verified; and ``sweep
+   --metrics-port 0`` over ``-c`` 1, 2, 4, 8 at the README shape
+   (``torch_sim --chained --verify``) on a thread, its endpoint scraped
+   mid-run, each scrape on a ``# metrics`` line;
+11. a ``measured phases {...}`` line (each decomposition in
    microseconds), the device busy shares, each phase's wall time, a
    ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and as
    the last line ``{"ok": true, "device": {...}}``.
@@ -2091,6 +2113,361 @@ def phase_tune_synth(dev) -> dict:
     return out
 
 
+def scrape(url: str) -> tuple:
+    """One GET of a ``/metrics`` endpoint: (text, wall seconds)."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        check(resp.headers["Content-Type"].startswith(
+            "application/openmetrics-text"), f"{url}: not OpenMetrics")
+        text = resp.read().decode()
+    return text, time.perf_counter() - t0
+
+
+def metrics_line(label: str, text: str, wall: float) -> dict:
+    """Validate one scrape and print its ``# metrics`` line; returns
+    ``{(name, labels): value}`` of its samples under ``"values"``."""
+    from tpu_aggcomm_torch.obs.regress import (parse_openmetrics,
+                                               validate_openmetrics)
+
+    errors = validate_openmetrics(text)
+    check(errors == [], f"{label} /metrics invalid: {errors[:3]}")
+    parsed = parse_openmetrics(text)
+    rec = dict(label=label, scrape_s=wall, samples=len(parsed["samples"]),
+               families=len(parsed["families"]), valid=True)
+    print(f"# metrics {json.dumps(rec)}", flush=True)
+    rec["values"] = {(s["name"], tuple(sorted(s["labels"].items()))):
+                     s["value"] for s in parsed["samples"]}
+    return rec
+
+
+@contextlib.contextmanager
+def recorded_campaigns():
+    """Each campaign the pilot runs while the block runs, with its host
+    wall (search, registration and race)."""
+    from tpu_aggcomm_torch.pilot import artifact
+
+    walls = []
+    real = artifact.run_campaign
+
+    def run(target, sampler, **kw):
+        t0 = time.perf_counter()
+        row = real(target, sampler, **kw)
+        walls.append(time.perf_counter() - t0)
+        return row
+
+    artifact.run_campaign = run
+    try:
+        yield walls
+    finally:
+        artifact.run_campaign = real
+
+
+def pilot_pass(label: str, journal, port: int, root, out_name: str) -> dict:
+    """One measured ``cli pilot`` pass against the in-process server, on
+    the card; the artifact validated and replayed REPRODUCED. Returns
+    the artifact and the pass's numbers (its ``# pilot`` line)."""
+    import statistics
+
+    from tpu_aggcomm_torch.native.fuse import fused_rep
+    from tpu_aggcomm_torch.obs.regress import validate_pilot
+
+    out = root / out_name
+    k2 = fused_rep.launches
+    t0 = time.perf_counter()
+    with recorded_campaigns() as walls:
+        _, text, err = cli_capture(
+            ["pilot", str(journal), "--serve-port", str(port), "--device",
+             "cuda", "--max-batches", "4", "--synth-root", str(root),
+             "--predict-root", str(Path(__file__).resolve().parent),
+             "--out", str(out)])
+    wall = time.perf_counter() - t0
+    check(err.count("has no 'gpu' calibration — ranking finalists "
+                    "structurally") == 1,
+          f"pilot {label} did not name the missing gpu calibration once")
+    blob = json.loads(out.read_text())
+    check(validate_pilot(blob, out.name) == [], f"{out.name} invalid")
+    _, replay, _ = cli_capture(["pilot", "--replay", str(out)])
+    check("-> REPRODUCED" in replay, f"{out.name} did not replay")
+    verify_walls = {r["key"]["request"]: r.get("latency_s")
+                    for r in map(json.loads, Path(journal).read_text()
+                                 .splitlines())
+                    if isinstance(r.get("key"), dict)
+                    and "request" in r["key"] and r.get("status") == "done"}
+    campaigns = []
+    for c, w in zip(blob["campaigns"], walls):
+        race = c["race"]
+        inc = [x for b in race["samples"].get(c["incumbent_cid"]) or []
+               for x in b]
+        campaigns.append(dict(
+            incumbent=c["incumbent_cid"], candidates=len(race["order"]),
+            searched=(c["search"] or {}).get("evaluated"),
+            registered=sorted(int(m) for m in c["registration"] or {}),
+            batches=race["batches_run"],
+            eliminations=len(race["eliminations"]),
+            winner=c["winner"]["cid"],
+            winner_us_per_rep=c["winner"]["median_s"] * 1e6,
+            incumbent_us_per_rep=statistics.median(inc) * 1e6
+            if inc else None,
+            win_ci_pct=c["win_ci_pct"], improved=c["improved"],
+            wall_s=w))
+    decisions = [dict(
+        incumbent=d["incumbent_cid"], winner=d["winner_cid"],
+        action=d["action"],
+        verify_rid=(d["swap"] or {}).get("verify_rid"),
+        verify_wall_s=verify_walls.get((d["swap"] or {}).get("verify_rid")),
+        error=(d["swap"] or {}).get("error")) for d in blob["decisions"]]
+    rec = dict(
+        label=label, mode=blob["mode"],
+        requests=blob["requests"]["admitted"],
+        targets=[dict(kind=t["kind"], backend=t["backend"],
+                      incumbent=t["incumbent_cid"], skipped=t["skipped"])
+                 for t in blob["targets"]],
+        campaigns=campaigns, decisions=decisions,
+        demotions=[dict(seq=r["seq"], action=r["action"],
+                        n_walls=r["n_walls"],
+                        outcome=(r["outcome"] or {}).get("ok"))
+                   for r in blob["demotions"]],
+        promotions=len(blob["promotions"]),
+        k2_launches=fused_rep.launches - k2, wall_s=wall)
+    print(f"# pilot {json.dumps(rec)}", flush=True)
+    return {"blob": blob, "line": rec}
+
+
+def sweep_endpoint(tmp) -> dict:
+    """``cli sweep ... --metrics-port 0`` on a thread of this process,
+    its endpoint scraped from the main thread while the sweep runs: the
+    first scrape right after the endpoint is announced, then until a
+    cell has completed. Returns the scrapes' lines and the sweep's exit."""
+    import threading
+
+    from tpu_aggcomm_torch import cli
+    from tpu_aggcomm_torch.obs.regress import parse_openmetrics
+
+    argv = ["sweep", "-m", "1", "-n", str(README["n"]), "-a",
+            str(README["a"]), "-d", str(README["d"]), "--comm-sizes",
+            "1,2,4,8", "--backend", "torch_sim", "--chained", "--verify",
+            "--metrics-port", "0", "--results-csv", str(tmp / "sweep.csv")]
+    print(f"$ python -m tpu_aggcomm_torch.cli {' '.join(argv)}", flush=True)
+    out, err, result = io.StringIO(), io.StringIO(), {}
+
+    def run():
+        try:
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                result["rc"] = cli.main(argv)
+        except BaseException as e:   # re-raised on the main thread
+            result["error"] = e
+
+    t0 = time.perf_counter()
+    th = threading.Thread(target=run)
+    th.start()
+    url, scrapes, done = None, [], 0.0
+    while th.is_alive() and done < 1:
+        if url is None:
+            for ln in err.getvalue().splitlines():
+                if ln.startswith("# metrics endpoint: "):
+                    url = ln.split(": ", 1)[1].strip()
+        if url is not None:
+            try:
+                text, wall = scrape(url)
+            except OSError:
+                if th.is_alive():
+                    raise
+                break                   # the sweep ended and closed it
+            if th.is_alive():
+                scrapes.append((text, wall, time.perf_counter() - t0))
+                done = next((s["value"] for s in parse_openmetrics(text)[
+                    "samples"] if s["name"] == "tpu_aggcomm_sweep_cells_total"
+                    and s["labels"].get("status") == "done"), 0.0)
+        time.sleep(0.05)
+    th.join()
+    print(out.getvalue(), end="")
+    print("".join(f"# stderr: {ln}\n" for ln in err.getvalue().splitlines()),
+          end="")
+    if "error" in result:
+        raise result["error"]
+    check(result.get("rc") == 0, f"sweep --metrics-port exited {result}")
+    check(url is not None and url.startswith("http://127.0.0.1:"),
+          "sweep never announced its loopback endpoint")
+    check(scrapes, "the sweep endpoint was never scraped mid-run")
+    lines = []
+    for i, (text, wall, at) in enumerate(scrapes[:1] + scrapes[-1:]):
+        rec = metrics_line(f"sweep mid-run {'first' if i == 0 else 'last'}"
+                           f" (at {at:.2f} s)", text, wall)
+        check(any(k[0] == "tpu_aggcomm_sweep_cells_total"
+                  for k in rec["values"]),
+              "the sweep's /metrics names no tpu_aggcomm_sweep_cells_total")
+        lines.append({k: v for k, v in rec.items() if k != "values"})
+    return {"scrapes": len(scrapes), "lines": lines,
+            "wall_s": time.perf_counter() - t0}
+
+
+def phase_pilot_obs(dev) -> dict:
+    """Slice 10's path, in a temporary directory, K2's launch count zeroed
+    first: an in-process ``ScheduleServer(device="cuda",
+    metrics_port=0)`` (default backend torch_sim, journalled) serves a
+    tight skewed burst at the README cell, every request verified: 10x
+    m=1 and 2x m=3 on torch_sim, 6x m=1 on cuda_fused (a K2 launch
+    each); its /metrics scraped and held to ``stats()``; then a measured
+    ``cli pilot`` pass (in this process, against the server's port, on
+    the card: campaigns on fresh torch_sim samples, promotions through
+    the server's swap op) whose artifact replays; every promoted shape's
+    next request served by the new method, verified; 6 more hot
+    requests and a second pass (promoted targets skipped, a demotion
+    row); a lookalike record refused and the same record demoting, the
+    old method served again, verified; then ``sweep --metrics-port 0``
+    scraped mid-run."""
+    import shutil
+    import tempfile
+
+    from tpu_aggcomm_torch.core.methods import METHODS
+    from tpu_aggcomm_torch.native.fuse import fused_rep
+    from tpu_aggcomm_torch.serve import ScheduleServer, ServeClient
+
+    repo = Path(__file__).resolve().parent
+    ids = set(METHODS)
+    readme = dict(method=1, nprocs=README["n"], cb_nodes=README["a"],
+                  comm_size=README["c"], data_size=README["d"])
+    out = {}
+    fused_rep.launches = 0
+    with tempfile.TemporaryDirectory(prefix="pilot_obs_") as tmp:
+        tmp = Path(tmp)
+        shutil.copy(repo / "SYNTH_r01.json", tmp)
+        journal = tmp / "serve_pilot.journal.jsonl"
+        srv = ScheduleServer(device="cuda", journal_path=str(journal),
+                             metrics_port=0)
+        srv.start()
+        try:
+            url = srv.ready_info()["metrics_url"]
+            check(url.startswith("http://127.0.0.1:"),
+                  f"the server's endpoint is not loopback: {url}")
+            t0 = time.perf_counter()
+            hot, _ = serve_burst(srv.port, [dict(readme, iter=i,
+                                                 verify=True)
+                                            for i in range(10)])
+            minority, _ = serve_burst(srv.port, [dict(readme, method=3,
+                                                      iter=i, verify=True)
+                                                 for i in range(2)])
+            k2 = fused_rep.launches
+            fused, _ = serve_burst(srv.port, [dict(
+                readme, backend="cuda_fused", iter=i, verify=True)
+                for i in range(6)])
+            out["k2_traffic"] = fused_rep.launches - k2
+            out["traffic_s"] = time.perf_counter() - t0
+            check(all(r["verified"] is True and r["served_method"]
+                      == r_method
+                      for rs, r_method in ((hot, 1), (minority, 3),
+                                           (fused, 1)) for r in rs),
+                  "the skewed burst was not served verified as asked")
+            check(out["k2_traffic"] == 6 + 1,
+                  f"K2 launches {out['k2_traffic']} for 6 cuda_fused "
+                  f"requests + 1 warm-up")
+            stats = srv.stats()
+            text, wall = scrape(url)
+            rec = metrics_line("serve after the burst", text, wall)
+            v = rec.pop("values")
+            served = sum(val for (name, labels), val in v.items()
+                         if name == "tpu_aggcomm_serve_requests_total"
+                         and ("outcome", "ok") in labels)
+            fill = v.get(("tpu_aggcomm_serve_batch_fill_ratio", ()))
+            check(served == stats["completed"] == 18,
+                  f"/metrics counts {served} requests, stats() "
+                  f"{stats['completed']}")
+            check(fill == stats["batch"]["fill_ratio"],
+                  f"/metrics batch fill {fill} != stats() "
+                  f"{stats['batch']['fill_ratio']}")
+            out["serve_metrics"] = rec
+
+            first = pilot_pass("first pass", journal, srv.port, tmp,
+                               "PILOT_r01.json")
+            out["first"] = first["line"]
+            promoted = []
+            for d in first["blob"]["decisions"]:
+                if d["action"] != "promote":
+                    continue
+                rec_ = d["record"]
+                req = {k: v for k, v in rec_["shape"].items()
+                       if v is not None}
+                with ServeClient(srv.port, timeout=600.0) as c:
+                    r = c.run(**dict(req, backend=rec_["backend"],
+                                     verify=True, iter=50))
+                check(r["verified"] is True
+                      and r["served_method"] == rec_["new_method"],
+                      f"promoted {rec_['old_cid']} -> {rec_['new_cid']} "
+                      f"but the next request was served by "
+                      f"m{r['served_method']}")
+                promoted.append(rec_)
+            out["promoted"] = [(p["old_cid"], p["new_cid"], p["backend"])
+                               for p in promoted]
+            print(f"# pilot promoted and served: {out['promoted']}",
+                  flush=True)
+
+            serve_burst(srv.port, [dict(readme, iter=60 + i, verify=True)
+                                   for i in range(6)])
+            second = pilot_pass("second pass", journal, srv.port, tmp,
+                                "PILOT_r02.json")
+            out["second"] = second["line"]
+            blob2 = second["blob"]
+            shapes = {json.dumps(p["shape"], sort_keys=True)
+                      for p in promoted}
+            for t in blob2["targets"]:
+                if json.dumps(t["shape"], sort_keys=True) in shapes:
+                    check(t["skipped"] == "already-promoted",
+                          f"second pass raced a promoted target: {t}")
+            check(len(blob2["demotions"]) == len(promoted),
+                  "the second pass has no demotion row per promotion")
+            demoted = []
+            for row in blob2["demotions"]:
+                rec_ = row["record"]
+                if row["action"] != "demote":
+                    with ServeClient(srv.port, timeout=120.0) as c:
+                        look = c.demote(dict(rec_, win_ci_pct=[
+                            rec_["win_ci_pct"][0] + 1.0,
+                            rec_["win_ci_pct"][1]]), "chip_smoke: lookalike")
+                        check(not look["ok"]
+                              and "never a lookalike" in look["error"],
+                              f"a lookalike demotion was not refused: "
+                              f"{look}")
+                        down = c.demote(rec_, "chip_smoke: the second "
+                                        "pass held; demoted to show the "
+                                        "old method serves again")
+                    check(down["ok"] and down["restored_method"]
+                          == rec_["old_method"], f"demote failed: {down}")
+                else:
+                    check(row["outcome"]["ok"] is True,
+                          f"the pilot's live demotion failed: {row}")
+                req = {k: v for k, v in rec_["shape"].items()
+                       if v is not None}
+                with ServeClient(srv.port, timeout=600.0) as c:
+                    r = c.run(**dict(req, backend=rec_["backend"],
+                                     verify=True, iter=70))
+                check(r["verified"] is True
+                      and r["served_method"] == rec_["old_method"],
+                      f"after the demotion m{r['served_method']} served "
+                      f"{rec_['old_cid']}")
+                demoted.append((rec_["new_cid"], rec_["old_cid"],
+                                row["action"]))
+            check(srv.stats()["promotions"] == [],
+                  "a promotion is still installed after the demotions")
+            out["demoted"] = demoted
+            print(f"# pilot demoted and served: {demoted}", flush=True)
+            text, wall = scrape(url)
+            rec = metrics_line("serve at the end", text, wall)
+            rec.pop("values")
+            out["serve_metrics_end"] = rec
+        finally:
+            srv.stop()
+            srv.close()
+        out["sweep"] = sweep_endpoint(tmp)
+    for mid in set(METHODS) - ids:
+        del METHODS[mid]
+    out["counts"] = {"fused_rep": fused_rep.launches}
+    print(f"# pilot_obs launches: {json.dumps(out['counts'])}", flush=True)
+    check(fused_rep.launches > 0, "K2 was not launched by pilot_obs")
+    return out
+
 def main() -> int:
     try:
         import torch
@@ -2135,8 +2512,10 @@ def main() -> int:
     tam_obs = timed("tam_obs", phase_tam_obs, dev)
     serve = timed("serve", phase_serve, dev)
     tune_synth = timed("tune_synth", phase_tune_synth, dev)
+    pilot_obs = timed("pilot_obs", phase_pilot_obs, dev)
     later_k2 = (tam_obs["counts"]["fused_rep"] + serve["counts"]["fused_rep"]
-                + tune_synth["counts"]["fused_rep"])
+                + tune_synth["counts"]["fused_rep"]
+                + pilot_obs["counts"]["fused_rep"])
     counts["fused_rep"] += later_k2
     main_path["reps"]["fused_rep"] += later_k2
     busy = {b: round(r["busy_share"], 6)

@@ -839,3 +839,57 @@ def test_tiny_cuda_fused_tune_writes_an_artifact_that_replays(cuda,
     path = f"{root}/TUNE_cuda_fused_n8_d64_p1_a2m.json"
     assert cli.main(["tune", "--replay", path]) == 0
     assert "-> REPRODUCED" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# the autopilot's promotions on the card
+
+
+def test_swap_on_cuda_fused_verifies_with_one_k2_launch(cuda, tmp_path):
+    """A swap on a cuda_fused server runs its verify request through the
+    normal queue as ONE K2 launch (the m=3 chain warmed first, so no
+    warm-up launch), and the promoted shape's next request is one more."""
+    from tpu_aggcomm_torch.serve import ScheduleServer, ServeClient
+
+    shape = {"method": 1, "nprocs": 32, "cb_nodes": 14, "comm_size": 3,
+             "data_size": 2048, "backend": "cuda_fused"}
+    srv = ScheduleServer(backend="cuda_fused", port=0, device="cuda",
+                         journal_path=str(tmp_path / "s.journal.jsonl"))
+    srv.start()
+    try:
+        with ServeClient(srv.port, timeout=300.0) as c:
+            for fields in (shape, dict(shape, method=3)):
+                r = c.run(**dict(fields, verify=True))
+                assert r["ok"] and r["verified"] is True
+        rec = {"shape": {k: v for k, v in shape.items() if k != "backend"},
+               "backend": "cuda_fused", "old_method": 1,
+               "old_cid": "m1:a14:c3:t0", "new_method": 3,
+               "new_cid": "m3:a14:c3:t0", "composition": None,
+               "win_ci_pct": [5.0, 10.0], "seed": 0, "alpha": 0.05,
+               "n_boot": 200, "fingerprint": srv.stats()["fingerprint"],
+               "artifact": None}
+        before = fused_rep.launches
+        res = srv.swap(rec)
+        assert res["installed"] is True and res["verified"] is True
+        assert fused_rep.launches == before + 1
+        with ServeClient(srv.port, timeout=300.0) as c:
+            r = c.run(**dict(shape, verify=True))
+        assert r["served_method"] == 3 and r["verified"] is True
+        assert fused_rep.launches == before + 2
+    finally:
+        srv.stop()
+        srv.close()
+
+
+def test_pilot_sampler_factory_gives_fresh_samples_on_the_card(cuda):
+    from tpu_aggcomm_torch.pilot.artifact import _default_sampler_factory
+
+    target = {"shape": {"method": 1, "nprocs": 32, "cb_nodes": 14,
+                        "comm_size": 3, "data_size": 2048}}
+    sampler = _default_sampler_factory(synthetic=None, seed=0,
+                                       batch_trials=2, device="cuda")(target)
+    before = fused_rep.launches
+    a, b = sampler("m1:a14:c3:t0", 0), sampler("m1:a14:c3:t0", 1)
+    assert len(a) == len(b) == 2 and all(x > 0 for x in a + b)
+    assert a != b
+    assert fused_rep.launches == before        # torch_sim, never K2

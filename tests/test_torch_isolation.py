@@ -66,7 +66,9 @@ def test_every_module_imports_and_runs_m1_on_cpu(poisoned):
     for m in ("tune.space", "tune.race", "tune.cache", "tune.measure",
               "synth.primitives", "synth.search", "synth.register",
               "synth.artifact", "analysis.check", "obs.regress",
-              "model.artifact"):
+              "model.artifact", "pilot", "pilot.plan", "pilot.promote",
+              "pilot.campaign", "pilot.artifact", "obs.export",
+              "obs.watch", "obs.slo"):
         assert f"tpu_aggcomm_torch.{m}" in mods
     code = f"""
 import importlib, sys

@@ -455,19 +455,28 @@ def test_server_roundtrip_batches_caches_and_evicts(tmp_path):
 
 
 def test_server_refusals_by_name(monkeypatch):
-    from tpu_aggcomm_torch.backends.torch_sim import NotPortedError
     from tpu_aggcomm_torch.device import NoCudaDeviceError
 
     assert SERVE_BACKENDS == ("torch_sim", "cuda_fused")
     with pytest.raises(ValueError, match="127.0.0.1 only"):
         ScheduleServer(host="0.0.0.0", device="cpu")
+    with pytest.raises(ValueError, match="127.0.0.1 only"):
+        ScheduleServer(host="0.0.0.0", metrics_port=0, device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         ScheduleServer(backend="jax_sim", device="cpu")
-    with pytest.raises(NotPortedError, match="obs/export"):
-        ScheduleServer(metrics_port=0, device="cpu")
-    monkeypatch.setenv("TPU_AGGCOMM_METRICS_PORT", "0")
-    with pytest.raises(NotPortedError, match="TPU_AGGCOMM_METRICS_PORT"):
-        ScheduleServer(device="cpu")
+    # --metrics-port (or the env var) arms a loopback /metrics endpoint
+    # whose URL the ready line announces
+    monkeypatch.delenv("TPU_AGGCOMM_METRICS_PORT", raising=False)
+    for port, env in ((0, None), (None, "0")):
+        if env is not None:
+            monkeypatch.setenv("TPU_AGGCOMM_METRICS_PORT", env)
+        srv = ScheduleServer(metrics_port=port, device="cpu")
+        try:
+            url = srv.ready_info()["metrics_url"]
+            assert url.startswith("http://127.0.0.1:")
+            assert url == srv.stats()["metrics_url"]
+        finally:
+            srv.close()
     monkeypatch.delenv("TPU_AGGCOMM_METRICS_PORT")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(NoCudaDeviceError, match="device='cpu'"):
@@ -476,6 +485,9 @@ def test_server_refusals_by_name(monkeypatch):
 
 @pytest.mark.parametrize("op", ["swap", "demote"])
 def test_swap_and_demote_refused_by_name(op):
+    """A malformed promotion record is refused by the named problems of
+    ``pilot/promote.validate_promotion_record``; nothing is installed.
+    (The working ops are ``tests/test_torch_pilot.py``'s.)"""
     srv = ScheduleServer(port=0, device="cpu")
     srv.start()
     try:
@@ -483,8 +495,9 @@ def test_swap_and_demote_refused_by_name(op):
             resp = (c.swap({"old_method": 1}) if op == "swap"
                     else c.demote({"old_method": 1}, "regressed"))
             assert resp["ok"] is False and resp["op"] == op
-            assert resp["error"].startswith(f"{op} refused: not ported")
-            assert "pilot/promote" in resp["error"]
+            assert resp["error"].startswith(
+                f"{op} refused: record field 'shape' must be dict")
+            assert "record field 'new_method' must be int" in resp["error"]
             assert c.stats()["promotions"] == []
     finally:
         srv.stop()

@@ -22,8 +22,13 @@ persisted as ``TUNE_*.json``, which ``--auto`` on ``run`` and ``sweep``
 applies. ``synth`` is the schedule synthesizer: a checker-pruned search
 of primitive compositions raced against the reference methods on
 ``torch_sim``, persisted as ``SYNTH_r*.json``, whose methods
-``--synth-root`` registers. Their ``--replay`` and ``--synthetic`` paths
-import no torch. A ``PREDICT_*.json`` entry is read for the platform of
+``--synth-root`` registers. ``pilot`` is the autopilot: it profiles a
+serve journal, races a campaign per hot target on fresh ``torch_sim``
+samples and, given ``--serve-port``, promotes a proven winner through the
+server's ``swap`` op (``PILOT_r*.json``). ``serve --metrics-port`` and
+``sweep --metrics-port`` expose a loopback OpenMetrics ``/metrics``
+endpoint. The ``--replay`` and ``--synthetic`` paths of ``tune``,
+``synth`` and ``pilot`` import no torch. A ``PREDICT_*.json`` entry is read for the platform of
 ``--device``: ``gpu`` on the card (the committed model has none, which
 is said once), ``cpu`` on the CPU. All run on the CUDA device unless
 ``--device cpu`` is given; ``local`` and ``native`` and the ``tam``
@@ -52,6 +57,10 @@ Examples::
     python -m tpu_aggcomm_torch.cli tune --replay TUNE_local_n8_d64_p1_a2m.json
     python -m tpu_aggcomm_torch.cli synth -a 14 -c 3 --synth-root /tmp/synth
     python -m tpu_aggcomm_torch.cli -m 103 -a 14 -d 2048 -c 3 --synth-root . --verify
+    python -m tpu_aggcomm_torch.cli serve --journal s.journal.jsonl --metrics-port 0
+    python -m tpu_aggcomm_torch.cli pilot s.journal.jsonl --serve-port PORT --synth-root /tmp/pilot
+    python -m tpu_aggcomm_torch.cli pilot --replay PILOT_r01.json
+    python -m tpu_aggcomm_torch.cli sweep -m 1 -a 14 -d 2048 --comm-sizes 1,2,4,8 --chained --metrics-port 0
 """
 
 from __future__ import annotations
@@ -271,10 +280,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "warning + fallback to -m on a miss or drift")
     sw.add_argument("--tune-root", default=".",
                     help="directory holding TUNE_*.json (default: .)")
-    # a reference flag whose machinery is not ported yet (ROADMAP.md
-    # queue A item 6): accepted so the refusal is named
     sw.add_argument("--metrics-port", type=int, default=None,
-                    metavar="PORT", help="not ported yet (refused by name)")
+                    metavar="PORT",
+                    help="serve live OpenMetrics at http://127.0.0.1:"
+                         "PORT/metrics for the duration of the sweep "
+                         "(0 = ephemeral port, printed to stderr); "
+                         "equivalent to TPU_AGGCOMM_METRICS_PORT; OFF "
+                         "by default — no thread, no socket, no import")
 
     # tune — statistical racing search + persistent tuned-schedule cache
     tn = sub.add_parser(
@@ -446,6 +458,72 @@ def build_parser() -> argparse.ArgumentParser:
                          "the race verdict from the recorded samples; "
                          "exits nonzero unless both match byte-for-byte")
 
+    # pilot — the online control loop (tpu_aggcomm_torch/pilot/)
+    pl = sub.add_parser(
+        "pilot", help="autopilot: tail a serve journal, fold the "
+                      "workload profiler's seeded proposals into "
+                      "(shape, method) targets, run a synth/race "
+                      "campaign per target (checker-pruned search, "
+                      "seeded-bootstrap eliminations on fresh torch_sim "
+                      "samples), and — live, behind byte-exact --verify "
+                      "parity plus a win CI excluding zero — promote the "
+                      "winner into the serving cache as a NAMED, "
+                      "journaled, reversible record. Writes "
+                      "PILOT_r*.json; --replay re-derives the whole "
+                      "decision trace torch-free")
+    pl.add_argument("journals", nargs="*", metavar="JOURNAL",
+                    help="serve journal(s) to profile (JSONL; distinct "
+                         "basenames — they are recorded by name for "
+                         "replay)")
+    pl.add_argument("--seed", type=int, default=0,
+                    help="proposal + search + race-bootstrap seed "
+                         "(recorded; same streams + seed = same "
+                         "artifact modulo timestamps)")
+    pl.add_argument("--serve-port", type=int, default=None,
+                    help="a running serve port: stats feed the fold "
+                         "(per-shape latency ranks targets) and "
+                         "promotions go through its framed swap op; "
+                         "absent = advisory-only pass")
+    pl.add_argument("--dry-run", action="store_true",
+                    help="with --serve-port: read stats but never swap "
+                         "(decisions become would-promote)")
+    pl.add_argument("--synthetic", metavar="SPEC", default=None,
+                    help="race a seeded synthetic latency model instead "
+                         "of measuring ('BASE_US[,mID*FACTOR]...'): "
+                         "torch-free, CPU-smoke only — recorded and "
+                         "replayed identically")
+    pl.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu: where the measured "
+                         "race runs, whose PREDICT_*.json entry prices "
+                         "the campaign survivors (gpu or cpu), and whose "
+                         "card an offline fingerprint names")
+    pl.add_argument("--max-batches", type=int, default=6)
+    pl.add_argument("--batch-trials", type=int, default=3)
+    pl.add_argument("--alpha", type=float, default=0.05)
+    pl.add_argument("--n-boot", type=int, default=2000)
+    pl.add_argument("--id-base", type=int, default=None,
+                    help="first method id for campaign finalists "
+                         "(default: one past the highest registered "
+                         "synthesized id)")
+    pl.add_argument("--predict-root", metavar="DIR", default=".",
+                    help="where the newest committed PREDICT_*.json "
+                         "lives: its calibration for this --device's "
+                         "platform prices campaign survivors (ranking "
+                         "prior only — the race decides; no such entry = "
+                         "structural ranking, said once)")
+    pl.add_argument("--synth-root", metavar="DIR", default=".",
+                    help="committed SYNTH_r*.json ids are registered "
+                         "FIRST so campaign finalists never collide "
+                         "(default: .)")
+    pl.add_argument("--out", metavar="PATH", default=None,
+                    help="artifact path (default: the first unused "
+                         "PILOT_rNN.json under --synth-root)")
+    pl.add_argument("--replay", metavar="PILOT_JSON", default=None,
+                    help="re-derive a committed artifact torch-free from "
+                         "the journal basenames + evidence recorded "
+                         "inside it; exits nonzero unless every "
+                         "derivation matches byte-for-byte")
+
     # serve — the persistent aggregation server (tpu_aggcomm_torch/serve/)
     sv = sub.add_parser(
         "serve", help="aggregation-as-a-service on the card: a long-lived "
@@ -501,7 +579,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "entry of this server's platform, gpu or cpu, "
                          "is read; default: .)")
     sv.add_argument("--metrics-port", type=int, default=None,
-                    help="not ported yet (refused by name)")
+                    help="opt-in OpenMetrics /metrics endpoint "
+                         "(obs/export.py; 0 = ephemeral port, announced "
+                         "on stderr; also via TPU_AGGCOMM_METRICS_PORT)")
     sv.add_argument("--trace", metavar="PREFIX", default=None,
                     help="flight recorder: batch spans + resilience "
                          "attempts to PREFIX.trace.jsonl")
@@ -688,7 +768,8 @@ def _run_sweep(args) -> int:
     import json
     import time
 
-    from tpu_aggcomm_torch.backends.torch_sim import NotPortedError
+    import os
+
     from tpu_aggcomm_torch.faults import FaultSpecError, RepairError
     from tpu_aggcomm_torch.harness.runner import (ExperimentConfig,
                                                   run_experiment)
@@ -697,10 +778,6 @@ def _run_sweep(args) -> int:
                                               RunJournal, check_boundary,
                                               safe_cancellation)
 
-    if args.metrics_port is not None:
-        raise NotPortedError(
-            "sweep --metrics-port is not ported to tpu_aggcomm_torch yet "
-            "(ROADMAP.md queue A item 6); run it on the reference package")
     if args.auto:
         _resolve_auto(args, args.nprocs, sweep=True)
     if args.comm_sizes:
@@ -735,6 +812,39 @@ def _run_sweep(args) -> int:
         journal = RunJournal(_sweep_journal(args.results_csv))
         man = ledger.manifest(device=_fingerprint_device(args))
         fp = journal.begin_session(man)
+    # live OpenMetrics endpoint (obs/export.py) — OFF by default: the
+    # import itself sits behind the flag/env gate, so a plain sweep
+    # never loads the telemetry code (zero-cost obs invariant). State
+    # the hot path touches is one `is not None` check per cell.
+    metrics_server = None
+    metrics_state = None
+    if args.metrics_port is not None \
+            or os.environ.get("TPU_AGGCOMM_METRICS_PORT", "").strip():
+        from tpu_aggcomm_torch.obs import export
+        from tpu_aggcomm_torch.obs import trace as obstrace
+        metrics_state = {"done": 0, "fail": 0, "walls": []}
+
+        def _metrics_text(state=metrics_state):
+            # built fresh per scrape: sweep progress + cell-wall
+            # histogram from the supervisor state, everything latency-
+            # shaped from the attribution cell stream when tracing is on
+            reg = export.MetricsRegistry()
+            reg.counter(f"{export.PREFIX}_sweep_cells", state["done"],
+                        status="done")
+            reg.counter(f"{export.PREFIX}_sweep_cells", state["fail"],
+                        status="fail")
+            for w in state["walls"]:
+                reg.observe(f"{export.PREFIX}_sweep_cell_wall_seconds", w)
+            if obstrace.enabled():
+                export.trace_registry(list(obstrace.current().events),
+                                      reg)
+            return reg.render()
+
+        metrics_server = export.serve_from_env(_metrics_text,
+                                               port=args.metrics_port)
+        if metrics_server is not None:
+            print(f"# metrics endpoint: {metrics_server.url}",
+                  file=sys.stderr, flush=True)
     try:
         with _tracing(args.trace), safe_cancellation():
             for fs in faults:
@@ -804,9 +914,16 @@ def _run_sweep(args) -> int:
                                                for r in records}),
                             artifacts=[args.results_csv],
                             wall_s=time.perf_counter() - t_cell)
+                    if metrics_state is not None:
+                        metrics_state["done"] += 1
+                        metrics_state["walls"].append(
+                            time.perf_counter() - t_cell)
     except CancelledAtBoundary as e:
         print(f"sweep: {e}", file=sys.stderr)
         return 130
+    finally:
+        if metrics_server is not None:
+            metrics_server.close()
     return 0
 
 
@@ -1228,6 +1345,78 @@ def _run_synth(args) -> int:
     return 0
 
 
+def _run_pilot(args) -> int:
+    """The autopilot control loop (tpu_aggcomm_torch/pilot/): profile ->
+    fold -> campaigns -> named decisions (-> swap), or --replay
+    re-deriving a committed PILOT_r*.json torch-free. The port of
+    ``tpu_aggcomm/cli.py:_run_pilot``; the measured race runs on
+    ``--device`` (its ``torch_sim`` sampler), and ``--device`` picks the
+    ``PREDICT_*.json`` platform entry that prices campaign survivors."""
+    import os
+
+    from tpu_aggcomm_torch.pilot import (PilotError, next_pilot_path,
+                                         render_pilot, replay_pilot,
+                                         run_pilot, write_pilot)
+
+    if args.replay:
+        import json as _json
+
+        from tpu_aggcomm_torch.obs.regress import validate_pilot
+        try:
+            with open(args.replay) as fh:
+                blob = _json.load(fh)
+        except (OSError, ValueError) as e:
+            raise SystemExit(f"pilot --replay: cannot read "
+                             f"{args.replay}: {e}")
+        errors = validate_pilot(blob, os.path.basename(args.replay))
+        if errors:
+            for e in errors:
+                print(f"FAIL {e}", file=sys.stderr)
+            raise SystemExit(f"pilot --replay: {args.replay} failed "
+                             f"schema validation ({len(errors)} "
+                             f"error(s))")
+        res = replay_pilot(args.replay)
+        print(f"replay {os.path.basename(args.replay)}: "
+              f"{len(blob.get('campaigns') or [])} campaign(s), "
+              f"{len(blob.get('promotions') or [])} promotion(s) -> "
+              f"{res['verdict']}")
+        for p in res["problems"]:
+            print(f"  {p}")
+        return 0 if res["verdict"] == "REPRODUCED" else 1
+
+    if not args.journals:
+        raise SystemExit("pilot: name at least one serve journal "
+                         "(or --replay a committed artifact)")
+    from tpu_aggcomm_torch.synth import ensure_registered
+    # committed ids first, so campaign finalists never collide
+    ensure_registered(args.synth_root)
+    params, params_source = _synth_params(args)
+    try:
+        body = run_pilot(
+            args.journals, seed=args.seed, serve_port=args.serve_port,
+            dry_run=args.dry_run, synthetic=args.synthetic,
+            params=params, params_source=params_source,
+            max_batches=args.max_batches,
+            batch_trials=args.batch_trials, alpha=args.alpha,
+            n_boot=args.n_boot, id_base=args.id_base,
+            device=args.device, log=print)
+    except PilotError as e:
+        raise SystemExit(f"pilot: {e}")
+    out = args.out or next_pilot_path(args.synth_root)
+    write_pilot(out, body)
+    print(render_pilot(body))
+    print(f"pilot artifact written: {out}")
+    from tpu_aggcomm_torch.obs.regress import validate_pilot
+    import json as _json
+    with open(out) as fh:
+        errors = validate_pilot(_json.load(fh), os.path.basename(out))
+    if errors:
+        for e in errors:
+            print(f"FAIL {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def _resolve_auto(args, nprocs: int, *, sweep: bool = False) -> None:
     """--auto: swap the explicit -m (and for run: -a/-c/-t) for the
     tuned winner of this (shape, direction, backend), when a
@@ -1530,6 +1719,8 @@ def main(argv=None) -> int:
         return _run_tune(args)
     if args.command == "synth" and (args.replay or args.synthetic):
         return _run_synth(args)
+    if args.command == "pilot" and (args.replay or args.synthetic):
+        return _run_pilot(args)
 
     from tpu_aggcomm_torch.backends.cuda_dma import (DmaCapacityError,
                                                      DmaProtocolError)
@@ -1551,6 +1742,8 @@ def main(argv=None) -> int:
             return _run_tune(args)
         if args.command == "synth":
             return _run_synth(args)
+        if args.command == "pilot":
+            return _run_pilot(args)
         return _run(args)
     except (FaultSpecError, RepairError) as e:
         # a malformed spec or an unrepairable fault is a usage error:

@@ -19,8 +19,20 @@ run ledger, copied from ``tpu_aggcomm/obs/`` (import paths rewritten).
   server's counters share (``padded_slots`` pads ``torch_sim`` batches),
   shape mix and arrivals.
 - :mod:`tpu_aggcomm_torch.obs.regress` — the schema validators of the
-  tuner's and the synthesizer's artifacts (``TUNE_*.json``,
-  ``SYNTH_r*.json``).
+  tuner's, the synthesizer's, the watchtower's and the autopilot's
+  artifacts (``TUNE_*.json``, ``SYNTH_r*.json``, ``WATCH_r*.json``,
+  ``PILOT_r*.json``) and of the OpenMetrics text.
+- :mod:`tpu_aggcomm_torch.obs.export` — live telemetry: latency
+  histograms, OpenMetrics rendering and the loopback ``/metrics``
+  endpoint (``serve --metrics-port``, ``sweep --metrics-port``,
+  ``TPU_AGGCOMM_METRICS_PORT``; off by default, never imported unless
+  armed).
+- :mod:`tpu_aggcomm_torch.obs.slo` — declarative SLO specs and the one
+  burn-rate arithmetic.
+- :mod:`tpu_aggcomm_torch.obs.watch` — the watchtower: the serve
+  journal judged against an SLO spec, seeded changepoints, root-cause
+  attribution (``WATCH_r*.json``), and the server's live burn-rate
+  gauges (``LiveSlo``).
 
 The package re-exports :func:`atomic_write`, as the reference's does.
 """

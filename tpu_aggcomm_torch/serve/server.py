@@ -11,11 +11,13 @@ with these changes:
   entry of its own platform (``gpu`` on the card, ``cpu`` on the CPU),
   never another platform's calibration: the committed artifact has no
   ``gpu`` entry, so on the card the floor is off and says so once;
-- ``swap`` and ``demote`` answer a framed refusal (they need
-  ``pilot/promote`` and ``synth/register``, not ported), and
-  ``--metrics-port`` / ``TPU_AGGCOMM_METRICS_PORT`` raise
-  ``NotPortedError`` at construction (``obs/export``, ``obs/watch`` and
-  ``obs/slo`` are not ported), so the ``/metrics`` gauges are gone;
+- ``swap`` registers a synthesized winner with the port's
+  ``synth.register`` and checks the record's backend against the port's
+  ``SERVE_BACKENDS``: a record that names ``jax_sim`` or
+  ``pallas_fused`` is refused by name; the verify request runs through
+  the normal queue on the record's backend, so on ``cuda_fused`` it is
+  one K2 launch, and a winner K2 cannot run (``UnfusableScheduleError``)
+  ends the swap unverified, with nothing installed;
 - constructing a server collects the run ledger's manifest, which names
   torch and the card, so construction imports torch (the reference's
   manifest never imports jax); importing this module does not.
@@ -131,11 +133,6 @@ SERVE_STATES = ("ready", "degraded", "draining")
 
 _LOOPBACK = ("127.0.0.1", "localhost")
 
-#: Why ``swap`` and ``demote`` are refused in the port.
-_PROMOTION_NOT_PORTED = (
-    "not ported to tpu_aggcomm_torch: a promotion needs pilot/promote "
-    "and synth/register (ROADMAP.md queue A item 6); nothing installed")
-
 #: Sentinel: floor params not loaded yet (lazy — most servers never see
 #: a deadline and must not pay a PREDICT_*.json scan at startup).
 _FLOOR_UNSET = object()
@@ -199,14 +196,6 @@ class ScheduleServer:
         if backend not in SERVE_BACKENDS:
             raise ValueError(f"serve: unknown backend {backend!r}; "
                              f"valid: {SERVE_BACKENDS}")
-        env_armed = os.environ.get("TPU_AGGCOMM_METRICS_PORT", "").strip()
-        if metrics_port is not None or env_armed:
-            from tpu_aggcomm_torch.backends.torch_sim import NotPortedError
-            raise NotPortedError(
-                "serve --metrics-port / TPU_AGGCOMM_METRICS_PORT is not "
-                "ported to tpu_aggcomm_torch yet (it needs obs/export, "
-                "obs/watch and obs/slo; ROADMAP.md queue A); run it on "
-                "the reference package")
         from tpu_aggcomm_torch.device import resolve_device
         self._device = resolve_device(device)
         #: the PREDICT_*.json platform entry the deadline floor reads
@@ -229,6 +218,12 @@ class ScheduleServer:
         self._queue: deque[_Pending] = deque()
         self._stop = False
         self._schedules: dict[tuple, tuple] = {}   # sig -> (sched, key, mid)
+        # installed promotions (autopilot swap op): shape sig -> the
+        # validated record + install seq. A promoted sig re-resolves to
+        # the NEW method's schedule; demote deletes the entry (and the
+        # resolved-schedule cache line) so the old method serves again.
+        self._promotions: dict[tuple, dict] = {}
+        self._promo_seq = 0
         # per-shape_key serve stats (repr(shape_key) -> counters);
         # latency_sum is the SAME latency the journal records per
         # request, accumulated in journal order (float-consistency pin
@@ -275,6 +270,27 @@ class ScheduleServer:
         self._degraded_reason: str | None = None
         self._drain_reason: str | None = None
 
+        # OFF by default; the /metrics import itself is the gate (the
+        # zero-cost obs invariant) — armed, the hot path pays one
+        # is-not-None check per request
+        self._registry = None
+        self._metrics = None
+        self._slo = None
+        env_armed = os.environ.get("TPU_AGGCOMM_METRICS_PORT", "").strip()
+        if metrics_port is not None or env_armed:
+            from tpu_aggcomm_torch.obs.export import MetricsRegistry, serve_from_env
+            registry = MetricsRegistry()
+            self._metrics = serve_from_env(registry.render,
+                                           port=metrics_port)
+            if self._metrics is not None:
+                self._registry = registry
+                self._state_gauge("ready")
+                # burn-rate gauges over rolling SLO windows — same
+                # measure_window arithmetic as `inspect watch`, loaded
+                # only behind the same import-level gate
+                from tpu_aggcomm_torch.obs.watch import LiveSlo
+                self._slo = LiveSlo(registry)
+
         self._recover = None
         if recover:
             self._recover = self._run_recovery(recover)
@@ -294,12 +310,20 @@ class ScheduleServer:
                 "max_queue": self._max_queue,
                 "max_conns": self._max_conns,
                 "state": self._state}
+        if self._metrics is not None:
+            info["metrics_url"] = self._metrics.url
         if self._recover is not None:
             info["recover"] = self._recover
         return info
 
+    def _state_gauge(self, state: str) -> None:
+        if self._registry is not None:
+            from tpu_aggcomm_torch.obs.export import SERVE_STATE_VALUES
+            self._registry.gauge("tpu_aggcomm_serve_state",
+                                 float(SERVE_STATE_VALUES.get(state, -1)))
+
     def _set_state(self, state: str, reason: str) -> None:
-        """One lifecycle transition: ledger + trace + journal —
+        """One lifecycle transition: ledger + trace + journal + gauge —
         every transition re-derivable from artifacts alone."""
         with self._cv:
             if self._state == state:
@@ -316,6 +340,7 @@ class ScheduleServer:
             self._journal.record({"state": seq}, fingerprint=self._fp,
                                  status="state", state=state, prev=prev,
                                  reason=str(reason)[:500])
+        self._state_gauge(state)
         print(f"serve: state {prev} -> {state} ({reason})",
               file=sys.stderr)
 
@@ -451,6 +476,9 @@ class ScheduleServer:
             self._listener.close()
         except OSError:
             pass
+        if self._metrics is not None:
+            self._metrics.close()
+            self._metrics = None
 
     def join(self, timeout: float | None = None) -> None:
         if self._accept_thread is not None:
@@ -571,6 +599,12 @@ class ScheduleServer:
                      else "serve:admit"),
             kind="shed", reason=reason, detail=detail[:500], **extra)
         trace.instant("ledger.resilience", **rec)
+        if self._registry is not None:
+            self._registry.counter("tpu_aggcomm_serve_shed",
+                                   reason=reason)
+        if self._slo is not None and rid is not None:
+            self._slo.record(status="shed", shed_reason=reason,
+                             deadline_ms=extra.get("deadline_ms"))
         if self._journal is not None and rid is not None:
             self._journal.record({"request": rid}, fingerprint=self._fp,
                                  status="shed", reason=reason,
@@ -599,6 +633,9 @@ class ScheduleServer:
             "serve:admit:conn", kind="shed", reason="connection-limit",
             detail=f"all {self._max_conns} handler slots busy")
         trace.instant("ledger.resilience", **rec)
+        if self._registry is not None:
+            self._registry.counter("tpu_aggcomm_serve_shed",
+                                   reason="connection-limit")
         try:
             conn.sendall((json.dumps(
                 {"ok": False, "shed": "connection-limit",
@@ -637,16 +674,22 @@ class ScheduleServer:
     def _schedule_for(self, req, backend_name: str):
         """(schedule, shape_key, served_method) for a request — compiled
         and (under a fault spec) repaired once per distinct shape,
-        torch-free. With no promotion op ported, the served method is
-        always the requested one (still named in the response and the
-        journal, as the reference names it)."""
+        torch-free. An installed promotion re-routes the REQUESTED shape
+        to the promoted method's schedule; the served method id is
+        threaded through to the response and journal so a swap is never
+        silent."""
         sig = tuple(getattr(req, f) for f in req.shape_fields) \
             + (backend_name,)
         with self._cv:
             hit = self._schedules.get(sig)
+            promo = self._promotions.get(sig)
         if hit is not None:
             return hit
         served_method = req.method
+        if promo is not None:
+            import dataclasses
+            served_method = promo["record"]["new_method"]
+            req = dataclasses.replace(req, method=served_method)
         schedule = request_schedule(req)
         from tpu_aggcomm_torch.core.schedule import schedule_shape_key
         shape_key = schedule_shape_key(schedule)
@@ -791,7 +834,10 @@ class ScheduleServer:
             with self._cv:
                 self._reserved -= 1
                 self._queue.append(pending)
+                depth = len(self._queue)
                 self._cv.notify_all()
+        if self._registry is not None:
+            self._registry.gauge("tpu_aggcomm_serve_queue_depth", depth)
         pending.event.wait()
         try:
             send_msg(fh, pending.response)
@@ -838,6 +884,11 @@ class ScheduleServer:
                     break
                 time.sleep(min(0.0005,
                                max(deadline - time.monotonic(), 0.0)))
+            if self._registry is not None:
+                with self._cv:
+                    depth = len(self._queue)
+                self._registry.gauge("tpu_aggcomm_serve_queue_depth",
+                                     depth)
             self._run_batch(batch)
 
     def _fail_batch(self, batch, disposition: str, err: str, *,
@@ -918,6 +969,15 @@ class ScheduleServer:
             self._fill_requests += len(batch)
             self._fill_slots += padded
             self._waste_bytes += waste
+            fill_req, fill_slots = self._fill_requests, self._fill_slots
+            waste_total = self._waste_bytes
+        if self._registry is not None:
+            ratio = batch_fill_ratio(fill_req, fill_slots)
+            if ratio is not None:
+                self._registry.gauge("tpu_aggcomm_serve_batch_fill_ratio",
+                                     ratio)
+            self._registry.gauge("tpu_aggcomm_serve_padding_waste_bytes",
+                                 float(waste_total))
         chain = entry["chain"]
         # occupancy marker for the pilot's contention guard
         # (tune/measure.py): an in-process campaign sampler refuses to
@@ -1028,6 +1088,19 @@ class ScheduleServer:
             row["hit" if disposition == "hit" else "miss"] += 1
             row["requests"] += 1
             row["latency_sum"] += latency
+        if self._registry is not None:
+            self._registry.observe("tpu_aggcomm_serve_request_seconds",
+                                   latency, backend=p.backend_name,
+                                   cache=disposition)
+            self._registry.counter("tpu_aggcomm_serve_requests",
+                                   backend=p.backend_name,
+                                   outcome="ok" if ok else "error")
+        if self._slo is not None:
+            self._slo.record(
+                status="done" if ok else "fail", wall_s=latency,
+                cache=disposition, deadline_ms=p.req.deadline_ms,
+                batch={"seq": batch_seq, "n": batch_n,
+                       "padded": batch_padded})
         # the batch correlation id rides in BOTH the journal record and
         # the trace instant (satellite of the flow contract: when the
         # journal tail is torn, inspect flow can still join on traces
@@ -1089,7 +1162,10 @@ class ScheduleServer:
                    "shed": dict(self._shed),
                    "per_shape": {k: dict(v)
                                  for k, v in self._per_shape.items()},
-                   "promotions": [],
+                   "promotions": sorted(
+                       ({"seq": v["seq"], "record": v["record"]}
+                        for v in self._promotions.values()),
+                       key=lambda r: r["seq"]),
                    "cache": dict(self._cache.stats(),
                                  compiles=self._n_compiles),
                    "batch": {"batches": self._n_batches,
@@ -1105,19 +1181,196 @@ class ScheduleServer:
                        "quantiles": self._quantiles(warm)}
         out["cold"] = {"n": len(cold),
                        "quantiles": self._quantiles(cold)}
+        if self._metrics is not None:
+            out["metrics_url"] = self._metrics.url
         return out
 
-    # -- autopilot promotions (not ported) ---------------------------------
+    # -- autopilot promotions ----------------------------------------------
+    def _promo_sig(self, record: dict) -> tuple:
+        """The schedule-resolution signature a promotion overrides —
+        the SAME tuple _schedule_for keys on, built through the same
+        parse_request path (identity, never guesswork)."""
+        req = parse_request(dict(record["shape"]))
+        return tuple(getattr(req, f) for f in req.shape_fields) \
+            + (record["backend"],)
+
     def _refuse_swap(self, op: str, why: str) -> dict:
         print(f"serve: {op} refused: {why}", file=sys.stderr)
         return {"ok": False, "op": op, "error": f"{op} refused: {why}"}
 
     def swap(self, record) -> dict:
-        """The pilot's ``swap`` op, refused by name: installing a
-        promotion needs ``pilot/promote`` (record validation) and
-        ``synth/register``, which the port does not have yet."""
-        return self._refuse_swap("swap", _PROMOTION_NOT_PORTED)
+        """Apply one validated promotion record (the pilot's ``swap``
+        op). The record is the ONLY currency accepted: structural
+        validation, fingerprint match, registration of a synthesized
+        winner, then a byte-exact ``--verify`` of the NEW method through
+        the NORMAL request queue — the override installs only on a
+        verified pass, and the installation is journaled by name."""
+        from tpu_aggcomm_torch.pilot.promote import validate_promotion_record
+        problems = validate_promotion_record(record)
+        if problems:
+            return self._refuse_swap("swap", "; ".join(problems))
+        if record["fingerprint"] != self._fp:
+            return self._refuse_swap(
+                "swap",
+                f"record fingerprint {record['fingerprint'][:12]}… does "
+                f"not match this server's manifest fingerprint "
+                f"{self._fp[:12]}… — a win measured under a drifted "
+                f"manifest does not transfer")
+        backend = record["backend"]
+        if backend not in SERVE_BACKENDS:
+            return self._refuse_swap(
+                "swap", f"backend {backend!r} is not servable; valid: "
+                        f"{SERVE_BACKENDS}")
+        with self._cv:
+            state = self._state
+        if state != "ready":
+            return self._refuse_swap(
+                "swap", f"server is {state.upper()} — promotions apply "
+                        f"to a READY server only")
+        from tpu_aggcomm_torch.core.methods import METHODS
+        if record["new_method"] not in METHODS \
+                and record.get("composition"):
+            from tpu_aggcomm_torch.synth.register import (RegisterError,
+                                                    register_composition)
+            old_spec = METHODS.get(record["old_method"])
+            if old_spec is None:
+                return self._refuse_swap(
+                    "swap", f"old_method {record['old_method']} is not "
+                            f"a registered method on this server")
+            try:
+                register_composition(record["composition"],
+                                     method_id=record["new_method"],
+                                     direction=old_spec.direction.value)
+            except (RegisterError, ValueError) as e:
+                return self._refuse_swap(
+                    "swap", f"cannot register composition "
+                            f"{record['composition']!r} as method "
+                            f"{record['new_method']}: {e}")
+        try:
+            sig = self._promo_sig(record)
+            verify_req = parse_request(dict(
+                record["shape"], method=record["new_method"],
+                backend=backend, verify=True))
+            schedule = request_schedule(verify_req)
+            from tpu_aggcomm_torch.core.schedule import schedule_shape_key
+            shape_key = schedule_shape_key(schedule)
+        except (ProtocolError, FaultSpecError, RepairError,
+                ValueError) as e:
+            return self._refuse_swap(
+                "swap", f"promoted method does not compile for this "
+                        f"shape: {type(e).__name__}: {e}")
+        with self._cv:
+            if sig in self._promotions:
+                return self._refuse_swap(
+                    "swap", f"a promotion (seq "
+                            f"{self._promotions[sig]['seq']}) is "
+                            f"already installed at this shape — demote "
+                            f"it first")
+            self._rid += 1
+            rid = self._rid
+            depth = len(self._queue) + self._reserved
+        # the acceptance bar: the NEW method, byte-exact vs the local
+        # oracle, through the normal queue (same batching, same
+        # journal) — never a side-door execution
+        pending = _Pending(verify_req, rid, schedule, shape_key,
+                           backend, record["new_method"])
+        pending.depth_at_admit = depth
+        if self._journal is not None:
+            shape = {f: getattr(verify_req, f)
+                     for f in verify_req.shape_fields}
+            self._journal.record(
+                {"request": rid}, fingerprint=self._fp,
+                status="admitted", shape=shape, backend=backend,
+                iter=verify_req.iter_, deadline_ms=None,
+                served_method=record["new_method"],
+                purpose="swap-verify", t_unix=time.time(),
+                queue_depth=depth)
+        with self._cv:
+            self._queue.append(pending)
+            self._cv.notify_all()
+        if not pending.event.wait(timeout=600.0):
+            return self._refuse_swap(
+                "swap", "verify leg timed out after 600 s — nothing "
+                        "installed")
+        resp = pending.response
+        if not (resp.get("ok") and resp.get("verified") is True):
+            return {"ok": True, "op": "swap", "installed": False,
+                    "verified": resp.get("verified"),
+                    "verify_rid": rid,
+                    "error": resp.get("error")
+                    or "verify leg did not return a verified pass — "
+                       "nothing installed"}
+        with self._cv:
+            self._promo_seq += 1
+            seq = self._promo_seq
+            self._promotions[sig] = {"seq": seq, "record": record}
+            # drop the resolved-schedule line so the next request at
+            # this sig re-resolves through the promotion
+            self._schedules.pop(sig, None)
+        if self._journal is not None:
+            self._journal.record(
+                {"promotion": seq}, fingerprint=self._fp, status="swap",
+                record=record, verify_rid=rid, t_unix=time.time())
+        trace.instant("serve.swap", seq=seq,
+                      old_method=record["old_method"],
+                      new_method=record["new_method"],
+                      new_cid=record["new_cid"],
+                      win_ci_pct=record["win_ci_pct"])
+        print(f"serve: promotion seq {seq}: m{record['old_method']} "
+              f"({record['old_cid']}) -> m{record['new_method']} "
+              f"({record['new_cid']}), win CI "
+              f"[{record['win_ci_pct'][0]:.1f}%, "
+              f"{record['win_ci_pct'][1]:.1f}%], verified rid {rid}",
+              file=sys.stderr)
+        return {"ok": True, "op": "swap", "installed": True,
+                "verified": True, "seq": seq, "verify_rid": rid,
+                "record": record}
 
     def demote(self, record, reason) -> dict:
-        """The pilot's ``demote`` op, refused by name (see :meth:`swap`)."""
-        return self._refuse_swap("demote", _PROMOTION_NOT_PORTED)
+        """Reverse one promotion. Accepts only the SAME record that
+        installed it (byte-level identity — never a lookalike) plus a
+        non-empty reason naming the regression verdict; re-installs the
+        old entry by deleting the override and its resolved-schedule
+        cache line, journaled by name."""
+        from tpu_aggcomm_torch.pilot.promote import (records_equal,
+                                               validate_promotion_record)
+        if not isinstance(reason, str) or not reason.strip():
+            return self._refuse_swap(
+                "demote", "a demotion must name the regression verdict "
+                          "that motivates it (empty reason refused)")
+        problems = validate_promotion_record(record)
+        if problems:
+            return self._refuse_swap("demote", "; ".join(problems))
+        try:
+            sig = self._promo_sig(record)
+        except (ProtocolError, ValueError) as e:
+            return self._refuse_swap(
+                "demote", f"record shape does not parse: {e}")
+        with self._cv:
+            inst = self._promotions.get(sig)
+            if inst is None:
+                return self._refuse_swap(
+                    "demote", "no promotion is installed at this shape")
+            if not records_equal(inst["record"], record):
+                return self._refuse_swap(
+                    "demote", f"record does not match the installed "
+                              f"promotion (seq {inst['seq']}) — "
+                              f"demotion must present the SAME record "
+                              f"that promoted, never a lookalike")
+            seq = inst["seq"]
+            del self._promotions[sig]
+            self._schedules.pop(sig, None)
+        if self._journal is not None:
+            self._journal.record(
+                {"promotion": seq}, fingerprint=self._fp,
+                status="demote", record=record, reason=reason,
+                t_unix=time.time())
+        trace.instant("serve.demote", seq=seq,
+                      old_method=record["old_method"],
+                      new_method=record["new_method"], reason=reason)
+        print(f"serve: demotion of promotion seq {seq}: "
+              f"m{record['new_method']} -> m{record['old_method']} "
+              f"restored — {reason}", file=sys.stderr)
+        return {"ok": True, "op": "demote", "seq": seq,
+                "restored_method": record["old_method"],
+                "reason": reason}
