@@ -30,6 +30,7 @@ import torch
 from tpu_aggcomm_torch.backends.torch_sim import TorchSimBackend
 from tpu_aggcomm_torch.native.fuse import (build_fused_rep, check_fence,
                                            fuse_plan)
+from tpu_aggcomm_torch.obs import trace
 
 __all__ = ["CudaFusedBackend", "FusedBackendError"]
 
@@ -62,7 +63,8 @@ class CudaFusedBackend(TorchSimBackend):
                 "cuda_fused: round-prefix truncation decomposes the "
                 "per-round program family — the fused kernel is one "
                 "launch; measure prefixes on torch_sim")
-        plan = fuse_plan(schedule)          # named refusal if unfusable
+        with trace.span("tables.edges"):
+            plan = fuse_plan(schedule)      # named refusal if unfusable
         return build_fused_rep(plan, device=self.device)
 
     def batched_rep(self, schedule):

@@ -572,13 +572,16 @@ class TorchShardBackend:
         decompose a different program than the whole-rep build runs, and
         both modes accept exactly the same schedules."""
         p = schedule.pattern
-        counts = np.asarray(recv_slot_counts(p))
-        recv_base, F = recv_layout(counts, ndev, bsz)
-        send_base, Fs = recv_layout(send_counts(p), ndev, bsz)
-        tabs = block_round_tables(schedule_edges(schedule), ndev=ndev,
-                                  bsz=bsz, send_base=send_base,
-                                  recv_base=recv_base, F=F)
-        barrier_rounds = barrier_rounds_of(schedule)
+        with trace.span("tables.edges"):
+            edges = schedule_edges(schedule)
+        with trace.span("tables.rounds"):
+            counts = np.asarray(recv_slot_counts(p))
+            recv_base, F = recv_layout(counts, ndev, bsz)
+            send_base, Fs = recv_layout(send_counts(p), ndev, bsz)
+            tabs = block_round_tables(edges, ndev=ndev, bsz=bsz,
+                                      send_base=send_base,
+                                      recv_base=recv_base, F=F)
+            barrier_rounds = barrier_rounds_of(schedule)
         orphans = set(barrier_rounds) - {r for (r, *_rest) in tabs}
         if orphans:
             raise ValueError(
@@ -659,24 +662,45 @@ class TorchShardBackend:
         # form: every round padded to the widest round (pads -> trash)
         scan = len(host) >= 32 and not any(nbar for (*_rest, nbar) in host)
         Mmax = max((pk.shape[-1] for (_r, pk, _sc, _nb) in host), default=0)
-        rounds = []
-        for (r, pk, sc, nbar) in host:
-            if scan and pk.shape[-1] < Mmax:
-                pad = Mmax - pk.shape[-1]
-                pk = np.concatenate(
-                    [pk, np.full((ndev, ndev, pad), -1, np.int32)], axis=2)
-                sc = np.concatenate(
-                    [sc, np.full((ndev, ndev, pad), F - 1, np.int32)],
-                    axis=2)
-            rounds.append((r, self._device_tab(built, pk, sc),
-                           0 if scan else nbar))
+        rounds, round_edges = [], []
+        with trace.span("tables.rounds"):
+            for (r, pk, sc, nbar) in host:
+                round_edges.append(int((pk >= 0).sum()))
+                if scan and pk.shape[-1] < Mmax:
+                    pad = Mmax - pk.shape[-1]
+                    pk = np.concatenate(
+                        [pk, np.full((ndev, ndev, pad), -1, np.int32)],
+                        axis=2)
+                    sc = np.concatenate(
+                        [sc, np.full((ndev, ndev, pad), F - 1, np.int32)],
+                        axis=2)
+                rounds.append((r, self._device_tab(built, pk, sc),
+                               0 if scan else nbar))
         built.rounds = rounds
         coll, dev = built.coll, self.device
+
+        def traced_rep(rec, flat_send, upto):
+            """:func:`rep` inside a ``rep`` span: the receive arena's
+            ``rep.arena``, then one ``rep.issue`` a round (its id and its
+            edges across the mesh)."""
+            with rec.span("rep"):
+                with rec.span("rep.arena"):
+                    recv = torch.zeros((F, w), dtype=dt, device=dev)
+                for (r, tab, nbar), ne in zip(rounds[:upto], round_edges):
+                    with rec.span("rep.issue", round=r, edges=ne):
+                        _apply_block_round(flat_send, recv, tab, nbar, F,
+                                           coll)
+                if delay is not None:
+                    slow_delay(flat_send[None], recv[None], delay)
+            return recv
 
         def rep(flat_send, upto: int | None = None):
             """One whole rep on this device's shard: flat_send (Fs, w) ->
             recv (F, w); ``upto`` truncates to the first upto rounds (the
             prefix programs measure_round_times differences)."""
+            rec = trace.current()
+            if rec is not None:
+                return traced_rep(rec, flat_send, upto)
             recv = torch.zeros((F, w), dtype=dt, device=dev)
             for (_r, tab, nbar) in rounds[:upto]:
                 _apply_block_round(flat_send, recv, tab, nbar, F, coll)
@@ -699,9 +723,21 @@ class TorchShardBackend:
                 return graph_chain(None, step=step)
             return eager_chain(None, step=step)
 
+        rep.F, rep.Fs, rep.counts = built.F, built.Fs, built.counts
+        rep.send_base, rep.recv_base = built.send_base, built.recv_base
         built.rep, built.make_chain = rep, make_chain
         self._cache[key] = built
         return built
+
+    def one_rep(self, schedule):
+        """``rep(flat_send (Fs, w)) -> recv (F, w)`` on this process's
+        shard: the rep :meth:`run` times, built once. It carries the
+        compacted layout its arenas follow: ``Fs`` and ``F`` (rows, the
+        trash row last), ``send_base`` and ``recv_base`` (a rank's first
+        send and receive row, -1 for none) and ``counts`` (receive slots a
+        rank), as :func:`~tpu_aggcomm_torch.native.fuse.build_fused_rep`'s
+        rep carries its ``tables``."""
+        return self._compiled(schedule).rep
 
     # ------------------------------------------------------------------
     def _send(self, p: AggregatorPattern, iter_: int, built: _Built

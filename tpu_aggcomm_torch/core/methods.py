@@ -33,6 +33,7 @@ import numpy as np
 
 from tpu_aggcomm_torch.core.pattern import AggregatorPattern, Direction, node_robin_map
 from tpu_aggcomm_torch.core.schedule import Op, OpKind, Schedule, TimerBucket
+from tpu_aggcomm_torch.obs import trace
 
 __all__ = ["METHODS", "MethodSpec", "compile_method", "method_ids"]
 
@@ -798,6 +799,8 @@ def compile_method(method_id: int, pattern: AggregatorPattern,
     spec = METHODS[method_id]
     if pattern.direction is not spec.direction:
         pattern = _replace(pattern, direction=spec.direction)
-    if method_id == 13:
-        return gen_all_to_many_scattered(pattern, barrier_type=barrier_type)
-    return spec.generator(pattern)
+    with trace.span("schedule.compile"):
+        if method_id == 13:
+            return gen_all_to_many_scattered(pattern,
+                                             barrier_type=barrier_type)
+        return spec.generator(pattern)

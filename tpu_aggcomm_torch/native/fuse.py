@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from tpu_aggcomm_torch.core.schedule import Schedule, barrier_rounds_of
+from tpu_aggcomm_torch.obs import trace
 
 __all__ = ["MAX_FUSED_EDGES", "UnfusableScheduleError", "FusedExportError",
            "FusePlan", "fuse_plan", "plan_round_matrices", "semaphore_deps",
@@ -434,6 +435,12 @@ def fused_rep_plain(send: torch.Tensor, tabs: FusedTables) -> torch.Tensor:
     """The plain version: zeroed recv, then per round
     ``recv[dst, dslot] = send[src, sslot]``, rounds in order."""
     recv = send.new_zeros((tabs.nprocs, tabs.n_recv_rows, send.shape[2]))
+    return _plain_rounds(send, tabs, recv)
+
+
+def _plain_rounds(send: torch.Tensor, tabs: FusedTables,
+                  recv: torch.Tensor) -> torch.Tensor:
+    """The plain version's copies into a zeroed ``recv``."""
     src, ss = tabs.src.long(), tabs.sslot.long()
     dst, ds = tabs.dst.long(), tabs.dslot.long()
     ptr = tabs.round_ptr
@@ -538,7 +545,13 @@ def fused_rep(send: torch.Tensor, tabs: FusedTables,
     the never-written rows zeroed inside it; ``stamps`` (int64, ``grid *
     (2 + 2 * max(R, 1))``, diagnostic calls only) receives each CTA's
     %globaltimer stamps. The call stays asynchronous: :func:`check_fence`
-    raises a fence timeout after the device has run it."""
+    raises a fence timeout after the device has run it. While a trace
+    recorder is on, the call is a ``rep`` span holding ``rep.arena`` (the
+    receive arena's allocation) and ``rep.issue`` (the launch; on the CPU
+    the plain version's copies)."""
+    rec = trace.current()
+    if rec is not None:
+        return _traced_fused_rep(rec, send, tabs, out, stamps)
     _check_args(send, tabs, out)
     if send.device.type == "cpu":
         if out is None:
@@ -547,6 +560,37 @@ def fused_rep(send: torch.Tensor, tabs: FusedTables,
     if out is None:
         out = torch.empty((tabs.nprocs, tabs.n_recv_rows, send.shape[2]),
                           dtype=send.dtype, device=send.device)
+    _launch(send, tabs, out, stamps)
+    return out
+
+
+def _traced_fused_rep(rec, send: torch.Tensor, tabs: FusedTables, out,
+                      stamps) -> torch.Tensor:
+    """:func:`fused_rep` inside its spans."""
+    with rec.span("rep"):
+        _check_args(send, tabs, out)
+        cpu = send.device.type == "cpu"
+        fresh = out is None
+        if fresh:
+            with rec.span("rep.arena"):
+                shape = (tabs.nprocs, tabs.n_recv_rows, send.shape[2])
+                out = (send.new_zeros(shape) if cpu else
+                       torch.empty(shape, dtype=send.dtype,
+                                   device=send.device))
+        with rec.span("rep.issue"):
+            if not cpu:
+                _launch(send, tabs, out, stamps)
+            elif fresh:
+                _plain_rounds(send, tabs, out)
+            else:
+                _fused_rep_into(send, tabs, out)
+    return out
+
+
+def _launch(send: torch.Tensor, tabs: FusedTables, out: torch.Tensor,
+            stamps) -> None:
+    """One launch of K2 on the current stream; counted in
+    ``fused_rep.launches``."""
     dev = _dev_index(send)
     rc = _c_lib()[0](
         send.data_ptr(), out.data_ptr(), tabs.round_ptr_dev.data_ptr(),
@@ -560,7 +604,6 @@ def fused_rep(send: torch.Tensor, tabs: FusedTables,
     if rc != 0:
         raise RuntimeError(f"fused_rep kernel launch failed: cudaError {rc}")
     fused_rep.launches += 1
-    return out
 
 
 fused_rep.launches = 0
@@ -570,7 +613,8 @@ def build_fused_rep(plan: FusePlan, *, device):
     """``rep(send (n, S, w) lanes) -> recv (n, R+1, w) lanes`` running the
     whole plan through :func:`fused_rep` on ``device``; its tables are
     ``rep.tables`` (for :func:`check_fence`)."""
-    tabs = plan_tables(plan, device)
+    with trace.span("tables.rounds"):
+        tabs = plan_tables(plan, device)
 
     def rep(send):
         return fused_rep(send, tabs)

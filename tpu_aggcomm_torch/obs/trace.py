@@ -25,21 +25,37 @@ trace re-aggregates FLOAT-EXACTLY to the Timer columns the run reported
 cell order; the timeline geometry (``ts``) is computed separately and
 never feeds aggregation.
 
+Host spans nest: each records its ``id`` and the ``id`` of the span
+open around it on the same thread (``parent``), and its ends in
+``perf_counter`` nanoseconds (``start_ns``, ``end_ns``). The meta event
+records ``profiler_offset_ns``, which added to those ends gives the
+clock of ``torch.profiler``'s events (Unix nanoseconds), so a span can be
+laid over the profiler's device timeline. While a profiler is recording,
+each host span is also a ``record_function`` range of the same name,
+entered after the span's start is read and left before its end is, so
+the profiler's range lies inside the recorder's span.
+
 Tracing is off by default and zero-cost when off: the module-level
 :func:`span` returns a shared no-op context manager and :func:`instant`
-is a single ``is None`` check. Nothing in this module imports jax.
+is a single ``is None`` check. A hot path with spans reads
+:func:`current` once and, when it is None, runs its untraced code.
+Nothing in this module imports jax or torch.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
+import sys
+import threading
 import time
 
 __all__ = ["TraceRecorder", "aggregate_run", "current", "disable", "enable",
            "enabled", "flush", "hbm_sample", "instant", "run_context",
            "span", "summarize_trace", "summarize_events", "load_events",
-           "round_key", "WHOLE_REP", "BUCKET_FIELDS"]
+           "round_key", "WHOLE_REP", "BUCKET_FIELDS", "span_self_us",
+           "span_child_us", "span_total_s"]
 
 #: ``round`` value of a slice that covers the whole rep (attributions with
 #: no per-round decomposition: attribute_total, the measured post/deliver
@@ -76,10 +92,24 @@ class _NoopSpan:
 _NOOP = _NoopSpan()
 
 
-class _HostSpan:
-    """A real perf_counter window appended to the event log on exit."""
+def _profiler_range(name: str):
+    """A ``record_function`` range named ``name``, entered, while a
+    ``torch.profiler`` session is recording; else None. Reads torch only
+    if the process has already imported its profiler."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not getattr(prof, "_is_profiler_enabled", False):
+        return None
+    rf = prof.record_function(name)
+    rf.__enter__()
+    return rf
 
-    __slots__ = ("_rec", "_name", "_args", "_t0")
+
+class _HostSpan:
+    """A real perf_counter window appended to the event log on exit, with
+    its place in the tree of spans open on its thread; a profiler range
+    of the same name inside it while a profiler records."""
+
+    __slots__ = ("_rec", "_name", "_args", "_t0", "_id", "_parent", "_rf")
 
     def __init__(self, rec: "TraceRecorder", name: str, args: dict):
         self._rec = rec
@@ -87,16 +117,43 @@ class _HostSpan:
         self._args = args
 
     def __enter__(self):
-        self._t0 = time.perf_counter()
+        stack = self._rec._local.open
+        self._parent = stack[-1] if stack else None
+        self._id = next(self._rec._ids)
+        stack.append(self._id)
+        self._t0 = time.perf_counter_ns()
+        self._rf = _profiler_range(self._name)
         return self
 
     def __exit__(self, *exc):
-        t1 = time.perf_counter()
-        self._rec._events.append({
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+        t1 = time.perf_counter_ns()
+        rec = self._rec
+        rec._local.open.pop()
+        rec._events.append({
             "ev": "host_span", "name": self._name,
-            "ts": (self._t0 - self._rec._t0) * 1e6,
-            "dur": (t1 - self._t0) * 1e6, "args": self._args})
+            "ts": (self._t0 - rec._t0_ns) / 1e3,
+            "dur": (t1 - self._t0) / 1e3, "args": self._args,
+            "id": self._id, "parent": self._parent,
+            "start_ns": self._t0, "end_ns": t1})
         return False
+
+
+class _OpenSpans(threading.local):
+    """The ids of the spans open on each thread, innermost last."""
+
+    def __init__(self):
+        self.open: list = []
+
+
+def _profiler_offset_ns() -> int:
+    """Unix nanoseconds (the profiler's clock) minus ``perf_counter``
+    nanoseconds, read between two perf_counter readings."""
+    a = time.perf_counter_ns()
+    wall = time.time_ns()
+    b = time.perf_counter_ns()
+    return wall - (a + b) // 2
 
 
 def round_key(rnd):
@@ -146,25 +203,38 @@ class TraceRecorder:
 
     SCHEMA_VERSION = 1
 
-    def __init__(self):
-        self._t0 = time.perf_counter()
+    def __init__(self, manifest: bool = True):
+        """``manifest=False`` makes a lean recorder: no run-ledger
+        preamble, so enabling it collects no manifest (git, nvcc)."""
+        self._t0_ns = time.perf_counter_ns()
+        self._t0 = self._t0_ns / 1e9
+        self._ids = itertools.count()
+        self._local = _OpenSpans()
         self._events: list[dict] = [
             {"ev": "meta", "schema": self.SCHEMA_VERSION,
-             "created_unix": time.time()}]
+             "created_unix": time.time(),
+             "profiler_offset_ns": _profiler_offset_ns()}]
         # the run-ledger preamble rides in every trace; ledger failure
         # (e.g. a sandboxed git) must never break tracing itself
-        try:
-            from tpu_aggcomm_torch.obs import ledger
-            self._events.append({"ev": "ledger",
-                                 "manifest": ledger.manifest()})
-        except Exception:  # lint: broad-ok (ledger enrichment must never sink a trace)
-            pass
+        if manifest:
+            try:
+                from tpu_aggcomm_torch.obs import ledger
+                self._events.append({"ev": "ledger",
+                                     "manifest": ledger.manifest()})
+            except Exception:  # lint: broad-ok (ledger enrichment must never sink a trace)
+                pass
         self._cursor_us = 0.0           # reconstructed-timeline cursor
         self._next_run = 0
 
     # -- host-side API ---------------------------------------------------
     def span(self, name: str, **args):
         return _HostSpan(self, name, args)
+
+    @property
+    def profiler_offset_ns(self) -> int:
+        """Add to a span's ``start_ns``/``end_ns`` for the profiler's
+        clock."""
+        return self._events[0]["profiler_offset_ns"]
 
     def instant(self, name: str, **args):
         self._events.append({
@@ -423,6 +493,44 @@ def _round_traffic(schedule) -> dict | None:
 
 
 # ---------------------------------------------------------------------------
+# Host span arithmetic: the readings a tree of host spans gives.
+
+def _named_spans(events: list[dict], name: str) -> list[dict]:
+    return sorted((e for e in events
+                   if e["ev"] == "host_span" and e["name"] == name),
+                  key=lambda e: e["ts"])
+
+
+def span_total_s(events: list[dict], name: str) -> float:
+    """Seconds in every host span named ``name``."""
+    return sum(e["dur"] for e in _named_spans(events, name)) / 1e6
+
+
+def span_child_us(events: list[dict], parent: str, name: str) -> list:
+    """For each host span named ``parent``, in the order they started,
+    the microseconds of its direct children named ``name``."""
+    tops = _named_spans(events, parent)
+    got = {e["id"]: 0.0 for e in tops}
+    for e in events:
+        if (e["ev"] == "host_span" and e["name"] == name
+                and e.get("parent") in got):
+            got[e["parent"]] += e["dur"]
+    return [got[e["id"]] for e in tops]
+
+
+def span_self_us(events: list[dict], name: str) -> list:
+    """For each host span named ``name``, in the order they started, its
+    microseconds less those of its direct children: the time spent in
+    its own code."""
+    tops = _named_spans(events, name)
+    kids = {e["id"]: 0.0 for e in tops}
+    for e in events:
+        if e["ev"] == "host_span" and e.get("parent") in kids:
+            kids[e["parent"]] += e["dur"]
+    return [e["dur"] - kids[e["id"]] for e in tops]
+
+
+# ---------------------------------------------------------------------------
 # Re-aggregation: trace -> Timer columns (the round-trip contract).
 
 def aggregate_run(events: list[dict], run_id: int):
@@ -574,10 +682,11 @@ def run_context(**extra):
         _RUN_EXTRA = prev
 
 
-def enable() -> TraceRecorder:
-    """Switch tracing on; returns the fresh recorder."""
+def enable(manifest: bool = True) -> TraceRecorder:
+    """Switch tracing on; returns the fresh recorder (a lean one, with no
+    run-ledger preamble, under ``manifest=False``)."""
     global _RECORDER
-    _RECORDER = TraceRecorder()
+    _RECORDER = TraceRecorder(manifest=manifest)
     return _RECORDER
 
 
