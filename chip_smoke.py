@@ -221,8 +221,10 @@ first failure (no phase's failure is caught):
    pane naming ``H100_PREDICT_r01.json [gpu]``; and
    ``obs/regress.check_regression`` over the root and over the
    repository, both verdicts printed;
-14. slice 14's path (``shard_flagship``), the delay kernel's launch
-   count zeroed first and read at its end: the sharded tier
+14. slice 14's path (``shard_flagship``), the launch counts of the
+   delay kernel and of the row-delivery kernel (``deliver_rows.cu``,
+   each round of ``torch_shard`` on one card) zeroed first and read at
+   its end, failing unless both launched: the sharded tier
    ``--backend torch_shard`` on this one card through ``cli run
    --chained --verify``: the README cell (beside ``torch_sim``'s same
    run), the README cell under ``--fault slow:r2*2`` (``slow_delay.cu``
@@ -231,7 +233,19 @@ first failure (no phase's failure is caught):
    its chained per-rep time, its ``torch_shard`` roofline floor (which
    must lie below it) and its peak device memory; then the delay against
    its plain version on the backend's own flat arenas;
-15. slice 15's path (``mesh_tier``), the one-rank-per-device tier:
+15. the row-delivery kernel alone (``deliver_rows``) at the Theta
+   flagship n=16384 a=256 m=1: the unthrottled round's 4,194,304 rows on
+   random send arenas of d=2048 and d=256, one launch into a receive
+   arena the caching allocator hands back filled with 0xFF, compared byte
+   for byte with the plain version and with ATen's gather and
+   ``index_put_`` into a zeroed arena, timed (graph and eager) beside the
+   plain version and the bytes bound (2*E*d plus the zeroed rows at
+   3.35 TB/s); then the ``-c 64`` rep's 256 rounds at d=2048, each
+   launched alone (its own device time from the profiler's kernel
+   records, and its bound), and the rep as the main path issues them
+   (programmatic dependent launches back to back, CUDA events), the two
+   arenas equal;
+16. slice 15's path (``mesh_tier``), the one-rank-per-device tier:
    (a) a NCCL world of one process on ``cuda:0``, a child started with
    ``python -m torch.distributed.run --standalone --nproc_per_node 1
    chip_smoke.py --mesh-tier-child OUT`` that runs ``cli run -n 1 -a 1 -d
@@ -248,7 +262,7 @@ first failure (no phase's failure is caught):
    and of a CUDA world of 2 processes (``TooFewCardsError``); (c)
    ``dryrun_multichip(8, "cpu")`` over 8 gloo processes on the host's CPU
    (labelled CPU: no card number);
-16. a ``measured phases {...}`` line (each decomposition in
+17. a ``measured phases {...}`` line (each decomposition in
    microseconds), the device busy shares, each phase's wall time, the
    ``shard cells {...}`` line, the ``mesh tier {...}`` line, a
    ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and as the
@@ -370,7 +384,8 @@ def phase_setup() -> None:
     lines = ptxas_report()
     check(all(any(k in ln for ln in lines) for k in
               ("exchange_chain_kernel", "fused_rep_kernel",
-               "dma_steps_kernel", "slow_delay_kernel")),
+               "dma_steps_kernel", "slow_delay_kernel",
+               "deliver_rows_kernel")),
           f"ptxas report lacks a kernel: {lines}")
     for ln in lines:
         print(f"# {ln}")
@@ -3435,9 +3450,10 @@ def recorded_schedules():
 def shard_cell(label: str, argv: list) -> dict:
     """One ``cli run --backend torch_shard --chained --verify`` cell on
     the card: its chained per-rep time (the backend's samples), the
-    ``torch_shard`` roofline floor of a chained rep (the rep's bytes plus
-    the token and XOR at 3.35 TB/s), which must lie below it, the peak
-    device memory and the wall; one ``# shard`` line."""
+    ``torch_shard`` roofline floor of a chained rep (on one card a
+    row-delivery launch a round; the rep's bytes plus the token and XOR
+    at 3.35 TB/s), which must lie below it, the peak device memory and
+    the wall; one ``# shard`` line."""
     import torch
 
     from tpu_aggcomm_torch.harness import roofline
@@ -3490,6 +3506,7 @@ def phase_shard_flagship(dev) -> dict:
 
     import torch
 
+    from tpu_aggcomm_torch.backends.deliver_rows import deliver_rows
     from tpu_aggcomm_torch.backends.slow_delay import (slow_delay,
                                                        slow_delay_plain,
                                                        slow_tables)
@@ -3503,7 +3520,7 @@ def phase_shard_flagship(dev) -> dict:
         csv = str(Path(tmp) / "shard.csv")
         readme = ["-n", "32", "-m", "1", "-a", "14", "-d", "2048", "-c", "3",
                   "--chained", "--verify", "--results-csv", csv]
-        slow_delay.launches = 0
+        slow_delay.launches = deliver_rows.launches = 0
         out["readme"] = shard_cell("README m=1 n=32 a=14 d=2048 c=3",
                                    [*readme, "--backend", "torch_shard"])
         with recorded_backends() as made:
@@ -3516,7 +3533,6 @@ def phase_shard_flagship(dev) -> dict:
         out["slow"] = shard_cell("README slow:r2*2",
                                  [*readme, "--backend", "torch_shard",
                                   "--fault", "slow:r2*2"])
-        out["counts"] = {"slow_delay": slow_delay.launches}
         check(slow_delay.launches > 0,
               "torch_shard's faulted run launched no slow_delay")
         out["flagship"] = shard_cell(
@@ -3524,6 +3540,10 @@ def phase_shard_flagship(dev) -> dict:
             ["-n", "16384", "-m", "1", "-a", "256", "-d", "256",
              "--backend", "torch_shard", "--chained", "--verify",
              "--results-csv", csv])
+        out["counts"] = {"slow_delay": slow_delay.launches,
+                         "deliver_rows": deliver_rows.launches}
+        check(deliver_rows.launches > 0,
+              "torch_shard on the card launched no deliver_rows")
         print(f"# shard_flagship launches: {json.dumps(out['counts'])}",
               flush=True)
 
@@ -3560,6 +3580,171 @@ def phase_shard_flagship(dev) -> dict:
           f"iterations, acc {row['acc']} == plain, arena == plain; "
           f"{row['ms'] * 1e3:.3f} us device, plain "
           f"{row['plain_ms'] * 1e3:.3f} us", flush=True)
+    return out
+
+
+def phase_deliver_rows(dev) -> dict:
+    """The row-delivery kernel alone (``csrc/deliver_rows.cu``:
+    ``torch_shard``'s round on one card with no group) at the Theta
+    flagship, n=16384 a=256 m=1. The unthrottled round's tables
+    (4,194,304 rows) and its zero runs, on random send arenas of d=2048
+    and of d=256: one launch through the wrapper into a receive arena the
+    caching allocator hands back filled with 0xFF, held byte for byte
+    against ``deliver_rows_plain`` on the same inputs (its arena of 0xFF
+    too, so its zero runs are applied) and against the gather and
+    ``index_put_`` into a zeroed arena; timed (CUDA graph and eager)
+    beside the plain version (eager) and the bytes bound: 2*E*d plus the
+    zeroed rows at 3.35 TB/s. Then the Theta script's ``-c 64`` (256
+    rounds) at d=2048: each round's own device time, launched alone after
+    a synchronize, from the profiler's kernel records (a record of a
+    launch back to back would also hold its wait for the previous round:
+    each is a programmatic dependent launch), against its own bound; and
+    the rep as the main path issues it, by CUDA events over back-to-back
+    reps. The rep's arena must equal the rounds' launched alone."""
+    import warnings
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tpu_aggcomm_torch.backends.deliver_rows import (arena_launcher,
+                                                         deliver_rows,
+                                                         deliver_rows_plain,
+                                                         unwritten_runs,
+                                                         zero_runs)
+    from tpu_aggcomm_torch.backends.torch_shard import TorchShardBackend
+    from tpu_aggcomm_torch.core.methods import compile_method
+    from tpu_aggcomm_torch.core.pattern import AggregatorPattern
+
+    n, a = 16384, 256
+    ALONE = "chip_smoke.rounds_alone"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2**31 + 19)
+    torch.cuda.empty_cache()
+
+    def build(c):
+        t0 = time.perf_counter()
+        s = compile_method(1, AggregatorPattern(n, a, data_size=2048,
+                                                comm_size=c))
+        return TorchShardBackend(dev)._compiled(s), time.perf_counter() - t0
+
+    def random_send(rows, w):
+        return torch.randint(-2**31, 2**31 - 1, (rows, w), dtype=torch.int32,
+                             device=dev, generator=gen)
+
+    def poisoned(rows, w):
+        block = torch.empty(rows * w * 4, dtype=torch.uint8, device=dev)
+        block.fill_(0xFF)
+        del block
+        return torch.empty((rows, w), dtype=torch.int32, device=dev)
+
+    def bound_ms(n_rows, zero_rows, d):
+        return (2 * n_rows * d + zero_rows * d) / HBM_BYTES_PER_S * 1e3
+
+    built, build_s = build(999_999_999)
+    F, Fs = built.F, built.Fs
+    (_r, tab, nbar), = built.rounds
+    tabs = tab.rows
+    zero = zero_runs(unwritten_runs(F, [(tabs.dst, nbar)]), dev)
+    out = {}
+    for d in (2048, 256):
+        w = d // 4
+        send = random_send(Fs, w)
+        got = deliver_rows(send, poisoned(F, w), tabs, zero)
+        want = deliver_rows_plain(
+            send, torch.full((F, w), -1, dtype=torch.int32, device=dev),
+            tabs, zero)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        check(err == 0 and torch.equal(got, want),
+              f"deliver_rows d={d}: kernel != plain")
+        want.zero_()
+        deliver_rows_plain(send, want, tabs)
+        check(torch.equal(got, want), f"deliver_rows d={d}: kernel != the "
+              f"gather and index_put_ into a zeroed arena")
+        del want
+        torch.cuda.empty_cache()
+        row = dict(shape=[n, a, d, 999_999_999], rows=tabs.n_rows,
+                   zero_rows=zero.rows, max_abs_err=err,
+                   ms=graph_ms(lambda: deliver_rows(send, got, tabs, zero),
+                               10),
+                   eager_ms=cuda_ms(lambda: deliver_rows(send, got, tabs,
+                                                         zero), 20, 3),
+                   plain_eager_ms=cuda_ms(lambda: deliver_rows_plain(
+                       send, got, tabs, zero), 3, 1),
+                   bound_ms=bound_ms(tabs.n_rows, zero.rows, d))
+        row["roofline"] = row["bound_ms"] / row["ms"]
+        out[d] = row
+        print(f"# deliver_rows n={n} a={a} d={d} unthrottled: "
+              f"{tabs.n_rows} rows copied, {zero.rows} zeroed; == plain "
+              f"into a 0xFF arena and == gather/index_put_ into a zeroed "
+              f"one; {row['ms']:.4f} ms device (CUDA graph), "
+              f"{row['eager_ms']:.4f} ms eager, plain "
+              f"{row['plain_eager_ms']:.4f} ms eager; bound "
+              f"{row['bound_ms']:.4f} ms, {100 * row['roofline']:.2f}% of "
+              f"it", flush=True)
+        del send, got
+        torch.cuda.empty_cache()
+    del built, tabs, zero
+
+    built, build64_s = build(64)
+    F, R, d = built.F, len(built.rounds), 2048
+    zero = zero_runs(unwritten_runs(
+        F, [(t.rows.dst, nb) for (_r, t, nb) in built.rounds]), dev)
+    send = random_send(built.Fs, d // 4)
+    recv = torch.empty((F, d // 4), dtype=torch.int32, device=dev)
+    issue = arena_launcher(send, recv)
+    built.rep(send)
+    torch.cuda.synchronize()
+    rep_ms = cuda_ms(lambda: built.rep(send), 10, 2)
+    with warnings.catch_warnings(), profile(
+            activities=[ProfilerActivity.CPU,
+                        ProfilerActivity.CUDA]) as prof:
+        warnings.simplefilter("ignore")
+        built.rep(send)              # the profiler's start-up: not read
+        torch.cuda.synchronize()
+        with record_function(ALONE):
+            for i, (_r, t, _nb) in enumerate(built.rounds):
+                issue(t.rows, zero if i == 0 else None)
+                torch.cuda.synchronize()
+    got = built.rep(send)
+    torch.cuda.synchronize()
+    check(torch.equal(got, recv), "deliver_rows -c 64: the rep's arena != "
+          "its rounds launched alone")
+    events = list(prof.profiler.kineto_results.events())
+    t0 = min((e.start_ns() for e in events
+              if e.device_type() == DeviceType.CPU and e.name() == ALONE),
+             default=None)
+    check(t0 is not None, f"deliver_rows -c 64: no {ALONE} range traced")
+    own = sorted(e.duration_ns() / 1e3 for e in events
+                 if e.device_type() == DeviceType.CUDA
+                 and "deliver_rows_kernel" in e.name() and e.start_ns() >= t0)
+    check(R // 2 <= len(own) <= R, f"deliver_rows -c 64: {len(own)} "
+          f"kernel records of {R} rounds launched alone")
+    bounds = [bound_ms(t.rows.n_rows, zero.rows if i == 0 else 0, d) * 1e3
+              for i, (_r, t, _nb) in enumerate(built.rounds)]
+    own_mean = sum(own) / len(own)
+    c64 = dict(shape=[n, a, d, 64], rounds=R, recorded=len(own),
+               rows_per_round=built.rounds[0][1].rows.n_rows,
+               zero_rows=zero.rows, own_us_mean=own_mean,
+               own_us_median=own[len(own) // 2], own_us_min=own[0],
+               own_us_max=own[-1], bound_us_round=sum(bounds) / R,
+               own_roofline=sum(bounds) / R / own_mean,
+               rep_us=rep_ms * 1e3, bound_us_rep=sum(bounds),
+               rep_roofline=sum(bounds) / (rep_ms * 1e3), build_s=build64_s)
+    out["c64"] = c64
+    out["build_s"] = build_s
+    print(f"# deliver_rows n={n} a={a} d={d} -c 64: {R} rounds of "
+          f"{c64['rows_per_round']} rows; a round launched alone (a "
+          f"synchronize between launches; {len(own)} profiler records): "
+          f"{own_mean:.2f} us mean, {c64['own_us_min']:.2f}-"
+          f"{c64['own_us_max']:.2f} (median {c64['own_us_median']:.2f}), "
+          f"{100 * c64['own_roofline']:.2f}% of its bound "
+          f"({c64['bound_us_round']:.2f} us); the rep as the main path "
+          f"issues it (programmatic dependent launches back to back, CUDA "
+          f"events over 10 reps): {c64['rep_us']:.1f} us, "
+          f"{100 * c64['rep_roofline']:.2f}% of its bound "
+          f"({c64['bound_us_rep']:.1f} us); == the rep's arena", flush=True)
     return out
 
 
@@ -3791,6 +3976,7 @@ def main() -> int:
     views = timed("obs_views", phase_obs_views, dev, main_path["bench"],
                   serve["delay"])
     shard = timed("shard_flagship", phase_shard_flagship, dev)
+    deliver = timed("deliver_rows", phase_deliver_rows, dev)
     mesh = timed("mesh_tier", phase_mesh_tier, smi)
     later_k2 = (tam_obs["counts"]["fused_rep"] + serve["counts"]["fused_rep"]
                 + tune_synth["counts"]["fused_rep"]
@@ -3854,6 +4040,20 @@ def main() -> int:
         large=[{k: v for k, v in r.items() if k not in ("acc",)}
                for r in delay[1:]],
         batched=serve["delay"]))
+    # torch_shard's round on one card replaces an XLA gather-scatter
+    # fusion, not a pallas_call; its row is d=2048 at the Theta flagship,
+    # d=256 under "narrow", the -c 64 rounds under "c64"; launches are
+    # the torch_shard CLI runs' (CUDA-graph replays included)
+    wide = deliver[2048]
+    kernels.append(dict(
+        wide, name="deliver_rows", route="cuda",
+        source="tpu_aggcomm_torch/csrc/deliver_rows.cu",
+        replaces="tpu_aggcomm/backends/jax_shard.py:70",
+        launches=shard["counts"]["deliver_rows"], bound_by="bytes",
+        library_ms=None, us_per_rep=wide["ms"] * 1e3,
+        matches_plain=wide["max_abs_err"] == 0
+        and deliver[256]["max_abs_err"] == 0,
+        narrow=deliver[256], c64=deliver["c64"]))
     print(json.dumps({"kernels": kernels}))
     print(f"# chip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -20,8 +20,9 @@ Every cell is verified (each of its slabs byte-checked on the host) and
 chained-timed with the serial-chain differenced scaffold (CUDA graph
 replays; chains of 10 and 110 reps, 2 trials, 2 windows, as the
 reference's script), and prints one ``# cell {json}`` line: the chained
-per-rep time, the ``torch_shard`` roofline floor of a chained rep (the
-rep's bytes plus the token and XOR at 3.35 TB/s) and the ratio, the
+per-rep time, the ``torch_shard`` roofline floor of a chained rep (on
+one card a row-delivery launch a round; the rep's bytes plus the token
+and XOR at 3.35 TB/s) and the ratio, the
 peak device memory of the plain rep and of the chain, and the host
 seconds of the schedule build, the tables, the rep and read-back, and
 the verification. The card's name and power limit come first and last.

@@ -1,0 +1,253 @@
+"""The row-delivery kernel's host half (``backends/deliver_rows.py``) on
+the CPU: its round tables, the rows a rep leaves to the first launch's
+zeroing, and its plain version.
+
+The kernel itself (``csrc/deliver_rows.cu``) runs only on the card
+(``tests/test_torch_gpu.py``). Here its tables and zero runs drive the
+plain version over a receive arena filled with 0xFF, as ``torch.empty``
+may hand the card's rep, and every byte must equal ``torch_shard``'s CPU
+rep, which zeroes its arena and runs the gather and ``index_put_``.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_aggcomm_torch.backends import deliver_rows as dr
+from tpu_aggcomm_torch.backends.torch_shard import (TorchShardBackend,
+                                                    schedule_edges)
+from tpu_aggcomm_torch.core.methods import compile_method
+from tpu_aggcomm_torch.core.pattern import AggregatorPattern
+
+
+def _brute_unwritten(F, rounds) -> set:
+    """Rows a rep leaves to the zeroing, by sets: every row no round
+    writes (a pad writes the trash row, a barrier token writes none), and
+    row 0 where a barrier comes before every write of row 0."""
+    written, row0_read = set(), False
+    for dst, nbar in rounds:
+        written |= {int(r) for r in dst}
+        row0_read = row0_read or (nbar > 0 and 0 not in written)
+    return (set(range(F)) - written) | ({0} if row0_read else set())
+
+
+def _rep_bytes(F, rounds, fill, zeroed=()):
+    """A rep over an arena of ``fill``, the ``zeroed`` rows zeroed first,
+    every round writing 7s into its rows, then its barrier tokens."""
+    recv = np.full((F, 2), fill, dtype=np.int64)
+    recv[list(zeroed)] = 0
+    for dst, nbar in rounds:
+        recv[np.asarray(dst, dtype=np.int64)] = 7
+        for _ in range(nbar):
+            recv[F - 1, 0] = recv[0, 0]
+    return recv
+
+
+def _random_rounds(rng, F, n_rounds):
+    """Random rounds over an ``F``-row arena: each writes distinct rows
+    below the trash row, some rounds pads into the trash row ``F - 1``,
+    some carry barrier tokens."""
+    out = []
+    for _ in range(n_rounds):
+        k = int(rng.integers(0, F))
+        dst = rng.choice(F - 1, size=min(k, F - 1), replace=False)
+        if rng.random() < 0.3:
+            dst = np.append(dst, [F - 1] * int(rng.integers(1, 4)))
+        out.append((dst.astype(np.int32), int(rng.integers(0, 3))
+                    if rng.random() < 0.4 else 0))
+    return out
+
+
+@pytest.mark.parametrize("seed", range(24))
+def test_unwritten_runs_equal_a_brute_force_set(seed):
+    """Runs in order, disjoint, and exactly the brute-force set: rows no
+    round writes (the trash row unless a pad writes it: a barrier token
+    writes only its lane 0) and row 0 where a barrier reads it before its
+    first write. Zeroing them makes a rep over an arena of 0xFF give the
+    bytes of a rep over a zeroed arena."""
+    rng = np.random.default_rng(seed)
+    F = int(rng.integers(2, 40))
+    rounds = _random_rounds(rng, F, int(rng.integers(0, 6)))
+    for upto in range(len(rounds) + 1):
+        runs = dr.unwritten_runs(F, rounds[:upto])
+        rows = [r for a, b in runs for r in range(a, b)]
+        assert len(rows) == len(set(rows))
+        assert all(a < b for a, b in runs)
+        assert all(b0 <= a1 for (_a0, b0), (a1, _b1) in zip(runs, runs[1:]))
+        assert set(rows) == _brute_unwritten(F, rounds[:upto])
+        assert np.array_equal(_rep_bytes(F, rounds[:upto], -1, rows),
+                              _rep_bytes(F, rounds[:upto], 0))
+
+
+def test_trash_row_rule():
+    """Pads write the trash row; barrier tokens do not; a barrier before
+    row 0's first write zeroes row 0 though a later round writes it."""
+    F = 6
+    assert dr.unwritten_runs(F, [([0, 1, 2, 3, 4], 2)]) == [(5, 6)]
+    assert dr.unwritten_runs(F, [([0, 1, 2, 3, 4, 5, 5], 2)]) == []
+    assert dr.unwritten_runs(F, [([1, 2], 1), ([0, 3, 4], 0)]) == [
+        (0, 1), (5, 6)]
+    assert dr.unwritten_runs(F, [([1, 2], 0), ([0, 3, 4], 1)]) == [(5, 6)]
+    assert dr.unwritten_runs(F, []) == [(0, 6)]
+
+
+def test_int32_overflow_is_refused_by_name():
+    big = dr.INT32_LIMIT
+    with pytest.raises(ValueError, match="receive rows overflows .* int32"):
+        dr.unwritten_runs(big, [])
+    with pytest.raises(ValueError, match="receive rows overflows .* int32"):
+        dr.row_tables(np.zeros(3), np.zeros(3), F=big, Fs=8, device="cpu")
+    with pytest.raises(ValueError, match="send rows overflows .* int32"):
+        dr.row_tables(np.zeros(3), np.zeros(3), F=8, Fs=big, device="cpu")
+    dr.row_tables(np.zeros(3), np.zeros(3), F=big - 1, Fs=big - 1,
+                  device="cpu")
+
+
+def test_row_tables_fold_the_pads_into_one_trash_entry():
+    pk = np.array([[4, -1, 2, -1, -1]], dtype=np.int32)
+    sc = np.array([[0, 9, 3, 9, 9]], dtype=np.int32)
+    t = dr.row_tables(pk, sc, F=10, Fs=5, device="cpu")
+    assert t.src.tolist() == [4, 2, 0] and t.dst.tolist() == [0, 3, 9]
+    assert (t.n_rows, t.send_rows, t.recv_rows) == (3, 5, 10)
+    assert t.args[2] == 3
+    t = dr.row_tables(pk[:, [0, 2]], sc[:, [0, 2]], F=10, Fs=5,
+                      device="cpu")
+    assert t.dst.tolist() == [0, 3]
+    with pytest.raises(ValueError, match="negative"):
+        dr.row_tables(np.array([1]), np.array([-2]), F=10, Fs=5,
+                      device="cpu")
+
+
+def test_wrapper_on_the_cpu_is_the_plain_version_and_checks():
+    send = torch.arange(5 * 3, dtype=torch.int32).reshape(5, 3)
+    recv = torch.full((10, 3), -1, dtype=torch.int32)
+    t = dr.row_tables(np.array([4, 2]), np.array([0, 3]), F=10, Fs=5,
+                      device="cpu")
+    z = dr.zero_runs([(1, 3), (4, 10)], "cpu")
+    assert (z.rows, z.args[2:]) == (8, (2, 8))
+    assert z.start_dev.tolist() == [1, 4] and z.ptr_dev.tolist() == [0, 2, 8]
+    before = dr.deliver_rows.launches
+    got = dr.deliver_rows(send, recv, t, z)
+    assert got is recv and dr.deliver_rows.launches == before
+    want = torch.zeros((10, 3), dtype=torch.int32)
+    want[0], want[3] = send[4], send[2]
+    assert torch.equal(recv, want)
+    assert dr.zero_runs([], "cpu") is dr.NO_ZERO
+    for bad in (recv[:, :2], recv.to(torch.int64), recv[:4], recv.t()):
+        with pytest.raises(ValueError, match="deliver_rows"):
+            dr.deliver_rows(send, bad, t, z)
+    with pytest.raises(ValueError, match="outside send"):
+        dr.deliver_rows(send[:4], recv, t)
+
+
+def _kernel_rep(b, s, send, upto):
+    """The card's rep of ``b``'s CPU build, in plain torch: the arena
+    unfilled (0xFF), each round through the kernel's tables, the first
+    with the zero runs, then the round's barrier tokens."""
+    built = b._compiled(s)
+    F = built.F
+    rounds = []
+    for (_r, tab, nbar) in built.rounds[:upto]:
+        sc = tab.sc.numpy()
+        pk = np.where(sc == F - 1, -1, tab.pk.numpy())
+        rounds.append((dr.row_tables(pk, sc, F=F, Fs=built.Fs,
+                                     device="cpu"), nbar))
+    zero = dr.zero_runs(dr.unwritten_runs(
+        F, [(t.dst, nbar) for t, nbar in rounds]), "cpu")
+    recv = torch.full((F, send.shape[1]), -1, dtype=send.dtype)
+    if not rounds:
+        dr.deliver_rows(send, recv, None, zero)
+    for t, nbar in rounds:
+        dr.deliver_rows(send, recv, t, zero)
+        zero = None
+        for _ in range(nbar):
+            recv[F - 1, 0] = recv[0, 0]
+    return recv
+
+
+@pytest.mark.parametrize("method,n,a,d,c,bt,fault", [
+    (1, 32, 14, 64, 999_999_999, 0, None),      # one round
+    (1, 32, 14, 100, 3, 0, None),               # throttled
+    (1, 100, 7, 16, 3, 0, None),                # 34 rounds: scan pads
+    (13, 32, 14, 6, 2, 2, None),                # barrier rounds, bytes
+    (17, 32, 14, 64, 3, 1, None),
+    (7, 32, 14, 64, 3, 1, None),
+    (2, 16, 4, 64, 2, 0, None),                 # many-to-all
+    (1, 8, 3, 64, 2, 0, "deadlink:5>3"),        # unrepaired dead link
+])
+def test_kernel_tables_give_the_cpu_reps_bytes(method, n, a, d, c, bt,
+                                                fault):
+    """For every prefix of the rounds: the kernel's tables and zero runs
+    over an unfilled arena give the CPU rep's bytes, trash row included."""
+    s = compile_method(method, AggregatorPattern(n, a, data_size=d,
+                                                 comm_size=c),
+                       barrier_type=bt)
+    if fault:
+        s = dataclasses.replace(s, fault=fault)
+    b = TorchShardBackend("cpu")
+    built = b._compiled(s)
+    send = b._send(s.pattern, 3, built)
+    for upto in range(len(built.rounds) + 1):
+        want = built.rep(send, upto)
+        assert torch.equal(_kernel_rep(b, s, send, upto), want), upto
+
+
+@pytest.mark.parametrize("method,n,a,d,c,bt,fault", [
+    (1, 32, 14, 64, 999_999_999, 0, None),
+    (1, 100, 7, 16, 3, 0, None),
+    (17, 32, 14, 66, 3, 1, None),
+    (8, 16, 4, 64, 2, 0, None),                 # dense: one round
+    (1, 8, 3, 64, 2, 0, "deadlink:5>3"),
+])
+def test_roofline_prices_the_kernels_rounds(method, n, a, d, c, bt, fault):
+    """``lowering="torch_shard"`` on one device prices the card's rounds:
+    every edge's row read and written once, nothing in between, the rows
+    of the first launch's zero runs, two int32 entries a table row and
+    the zero runs' tables, one pad entry a padded round; fewer bytes than
+    the CPU's zero fill, gather and ``index_put_``."""
+    from tpu_aggcomm_torch.harness import roofline
+    s = compile_method(method, AggregatorPattern(n, a, data_size=d,
+                                                 comm_size=c),
+                       barrier_type=bt)
+    if fault:
+        s = dataclasses.replace(s, fault=fault)
+    b = TorchShardBackend("cpu")
+    built = b._compiled(s)
+    F = built.F
+    tabs = []
+    for (_r, tab, nbar) in built.rounds:
+        sc = tab.sc.numpy()
+        tabs.append((dr.row_tables(np.where(sc == F - 1, -1, tab.pk.numpy()),
+                                   sc, F=F, Fs=built.Fs, device="cpu"),
+                     nbar))
+    runs = dr.unwritten_runs(F, [(t.dst, nbar) for t, nbar in tabs])
+    entries = sum(t.n_rows for t, _nb in tabs)
+    E = len(schedule_edges(s))
+    pads = entries - E
+    rb = roofline.rep_bytes(s, lowering="torch_shard")
+    assert (rb.gather_read, rb.scatter_write, rb.intermediate,
+            rb.refence_walks, rb.barrier) == (E * d, E * d, 0, 0, 0)
+    assert rb.zero_init == sum(b_ - a_ for a_, b_ in runs) * d
+    assert rb.pad == 2 * pads * d
+    assert rb.index_read == 8 * entries + (4 * (2 * len(runs) + 1)
+                                           if runs else 0)
+    assert (rb.rounds, rb.devices) == (len(tabs), 1)
+    assert rb.total() < roofline._shard_rep_bytes(s, 1).total()
+
+
+def test_roofline_prices_the_kernel_on_one_device_only():
+    """Over two devices the row is the group program's; TAM on
+    torch_shard is the blocked engine's; the kernel is no lowering of its
+    own."""
+    from tpu_aggcomm_torch.harness import roofline
+    s = compile_method(1, AggregatorPattern(8, 3, data_size=64, comm_size=2))
+    assert roofline.rep_bytes(s, lowering="torch_shard", ndev=2) == \
+        roofline._shard_rep_bytes(s, 2)
+    tam = compile_method(15, AggregatorPattern(16, 3, data_size=64,
+                                               proc_node=4))
+    assert roofline.tam_rep_bytes(tam, lowering="torch_shard") == \
+        roofline._tam_shard_rep_bytes(tam)
+    with pytest.raises(ValueError, match="unknown lowering 'deliver_rows'"):
+        roofline.rep_bytes(s, lowering="deliver_rows")

@@ -1147,3 +1147,124 @@ def test_cuda_dma_is_refused_under_a_group_on_the_card(cuda, tmp_path):
                 CudaDmaBackend(cuda, concurrent=conc)
     CudaDmaBackend(cuda).run(compile_method(1, AggregatorPattern(
         8, 3, data_size=64, comm_size=2)), verify=True)
+
+
+# ---------------------------------------------------------------------------
+# The row-delivery kernel (csrc/deliver_rows.cu): torch_shard's round with
+# no process group on the card, its receive arena left unfilled and its
+# never-written rows zeroed by the rep's first launch. Before each rep the
+# caching allocator is handed a block of 0xFF of the arena's size, so a
+# row the launch should have zeroed shows.
+
+def _poison(nbytes: int, device) -> None:
+    t = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    t.fill_(0xFF)
+    del t
+
+
+def _shard_builds(s, cuda):
+    from tpu_aggcomm_torch.backends.torch_shard import TorchShardBackend
+    gpu, cpu = TorchShardBackend(cuda), TorchShardBackend("cpu")
+    bg, bc = gpu._compiled(s), cpu._compiled(s)
+    return bg, bc, gpu._send(s.pattern, 2, bg), cpu._send(s.pattern, 2, bc)
+
+
+@pytest.mark.parametrize("method,n,a,d,c,bt", [
+    (1, 32, 14, 2048, 999_999_999, 0),         # one round
+    (1, 32, 14, 256, 3, 0),                     # throttled
+    (1, 100, 7, 100, 3, 0),                     # 34 rounds: scan pads,
+                                                # 4-byte lanes
+    (13, 32, 14, 6, 2, 2),                      # barrier rounds, bytes
+    (17, 32, 14, 2048, 3, 1),
+    (2, 32, 14, 256, 4, 0),                     # many-to-all
+])
+def test_deliver_rows_rep_equals_the_cpu_at_every_prefix(cuda, method, n, a,
+                                                         d, c, bt):
+    """Every prefix of the rounds (and the whole rep): the card's flat
+    receive arena, trash row included, equals the CPU's gather and
+    index_put_ into a zeroed arena; one launch a round, none of ATen's
+    index kernels. Rows of 2048 and 256 bytes take 16-byte lanes, of 100
+    bytes 4-byte lanes, of 6 bytes 1-byte lanes."""
+    from tpu_aggcomm_torch.backends.deliver_rows import deliver_rows
+    s = compile_method(method, AggregatorPattern(n, a, data_size=d,
+                                                 comm_size=c),
+                       barrier_type=bt)
+    bg, bc, sg, sc = _shard_builds(s, cuda)
+    R = len(bg.rounds)
+    nbytes = bg.F * sg.shape[1] * sg.element_size()
+    for upto in [*range(R + 1), None]:
+        _poison(nbytes, cuda)
+        before = deliver_rows.launches
+        got = bg.rep(sg, upto)
+        torch.cuda.synchronize()
+        k = R if upto is None else upto
+        assert deliver_rows.launches - before == max(k, 1)
+        np.testing.assert_array_equal(to_reference(got),
+                                      to_reference(bc.rep(sc, upto)))
+
+
+@pytest.mark.parametrize("spec", ["deadlink:5>3", "deadlink:9>0",
+                                  "slow:r2*2"])
+def test_deliver_rows_faulted_rep_equals_the_cpu(cuda, spec):
+    """An unrepaired dead link (its dropped rows must read zero) and a
+    slow rank (the delay after the rounds): the card's arena equals the
+    CPU's."""
+    from tpu_aggcomm_torch.faults import repair_schedule
+    healthy = compile_method(1, AggregatorPattern(32, 14, data_size=2048,
+                                                  comm_size=3))
+    s = (dataclasses.replace(healthy, fault=spec)
+         if spec.startswith("dead") else repair_schedule(healthy, spec))
+    bg, bc, sg, sc = _shard_builds(s, cuda)
+    _poison(bg.F * sg.shape[1] * 4, cuda)
+    got, want = to_reference(bg.rep(sg)), to_reference(bc.rep(sc))
+    np.testing.assert_array_equal(got, want)
+    if spec.startswith("dead"):
+        healthy_rep = to_reference(_shard_builds(healthy, cuda)[0].rep(sg))
+        assert not np.array_equal(got, healthy_rep)
+
+
+@pytest.mark.parametrize("iters", [5, 53])
+def test_deliver_rows_graph_chain_equals_the_eager_chain(cuda, iters):
+    """torch_shard's chain as CUDA graph replays equals the same chain run
+    eagerly on the card; the counter counts a launch a round of every
+    replayed rep (and of the warm-up rep)."""
+    from tpu_aggcomm_torch.backends.deliver_rows import deliver_rows
+    from tpu_aggcomm_torch.parallel import group_sum
+    s = compile_method(1, AggregatorPattern(32, 14, data_size=2048,
+                                            comm_size=3))
+    bg, _bc, sg, _sc = _shard_builds(s, cuda)
+    F, R = bg.F, len(bg.rounds)
+
+    def step(carry, r):
+        recv = bg.rep(carry)
+        chained.xor_token_(carry, chained.token_from_sum(
+            group_sum(recv[:F - 1, 0], None), r))
+
+    want = chained.eager_chain(None, step=step)(iters)(sg)
+    make_chain = bg.make_chain()
+    for first in (True, False):
+        before = deliver_rows.launches
+        got = make_chain(iters)(sg)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert deliver_rows.launches - before == (iters + first) * R
+    assert not torch.equal(got, sg)
+
+
+def test_deliver_rows_arena_past_four_gigabytes(cuda):
+    """n=4096 a=256 d=4096: 4.29 GB arenas, byte offsets past 2^32. The
+    kernel's arena equals ATen's gather and index_put_ into a zeroed
+    arena on the card, trash row included."""
+    s = compile_method(1, AggregatorPattern(4096, 256, data_size=4096,
+                                            comm_size=999_999_999))
+    from tpu_aggcomm_torch.backends.torch_shard import TorchShardBackend
+    b = TorchShardBackend(cuda)
+    built = b._compiled(s)
+    send = b._send(s.pattern, 1, built)
+    assert built.F * send.shape[1] * 4 > 2 ** 32
+    (_r, tab, _nbar), = built.rounds
+    _poison(built.F * send.shape[1] * 4, cuda)
+    got = built.rep(send)
+    want = torch.zeros_like(got)
+    want[tab.sc] = send[tab.pk]
+    assert torch.equal(got, want)

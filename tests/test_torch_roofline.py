@@ -13,10 +13,12 @@ and the runner's soft deadlines priced off it, on the CPU.
 - the named departures: H100 constants, no fence copy (``refence_walks``
   0), ``jax_sim`` and ``jax_shard`` unknown (the port's lowerings are
   ``torch_sim`` and ``torch_shard``);
-- ``torch_shard``'s row: its bytes are the aten-counted bytes of the
-  sharded tier's one-device program (rep and chain step), counted as
-  ``torch_sim``'s are, and its terms over ndev devices follow the
-  reference's ``jax_shard`` edge and padding counts;
+- ``torch_shard``'s row: the bytes of its group program at one device
+  are the aten-counted bytes of the sharded tier's CPU program (rep and
+  chain step), counted as ``torch_sim``'s are; its terms over ndev
+  devices follow the reference's ``jax_shard`` edge and padding counts;
+  at one device the row prices the card's row-delivery rounds
+  (``tests/test_torch_deliver.py``), with the reference's edges;
 - ``derive_deadline`` and ``soft_deadline_check`` equal the reference's,
   ``schedule_floor_s`` prices torch_sim only, and a dispatch over its
   (forced) deadline is one ``deadline`` record and a stderr line, the
@@ -227,11 +229,13 @@ def test_chain_overhead_is_the_chain_steps(m, d):
 
 @pytest.mark.parametrize("m,d", CASES)
 def test_torch_shard_row_is_the_programs_bytes(m, d):
-    """The sharded row prices torch_shard's one-device program: every
-    byte its rep moves, counted by aten operation as torch_sim's are (the
-    scan-padded, barrier and dense rounds included), and the chain step's
-    XOR of the flat send buffer and token read. TAM runs the blocked
-    engine, which the row does not model (the TAM line is torch_sim's)."""
+    """The sharded row's group program at one device is torch_shard's
+    CPU program: every byte its rep moves, counted by aten operation as
+    torch_sim's are (the scan-padded, barrier and dense rounds included),
+    and the chain step's XOR of the flat send buffer and token read. The
+    row itself prices the card's row delivery, with the same edges and
+    rounds and fewer bytes. TAM runs the blocked engine, which the row
+    does not model (the TAM line is torch_sim's)."""
     if METHODS[m].tam:
         with pytest.raises(ValueError, match="tam_rep_bytes"):
             roofline.rep_bytes(_pair(m, d)[0], lowering="torch_shard")
@@ -239,8 +243,12 @@ def test_torch_shard_row_is_the_programs_bytes(m, d):
     s, rs = _pair(m, d, n=32, c=1)
     built = TorchShardBackend("cpu")._compiled(s)
     send = _shard_send(s)
+    plain = roofline._shard_rep_bytes(s, 1)
+    assert _counted(built.rep, send) == plain.total()
     rb = roofline.rep_bytes(s, lowering="torch_shard")
-    assert _counted(built.rep, send) == rb.total()
+    assert (rb.gather_read, rb.scatter_write, rb.edges, rb.rounds) == \
+        (plain.gather_read, plain.scatter_write, plain.edges, plain.rounds)
+    assert rb.total() < plain.total()
     recv = built.rep(send)
     from tpu_aggcomm_torch.parallel import group_sum
 
@@ -318,7 +326,7 @@ def test_h100_constants_and_named_departures():
         roofline.rep_bytes(s, lowering="jax_shard")
     with pytest.raises(ValueError, match="unknown lowering 'jax_shard'"):
         roofline.chain_overhead_bytes(s, lowering="jax_shard")
-    assert roofline.rep_bytes(s, lowering="torch_shard").total() == \
+    assert roofline._shard_rep_bytes(s, 1).total() == \
         _counted(TorchShardBackend("cpu")._compiled(s).rep,
                  _shard_send(s)) > 0
     with pytest.raises(ValueError, match="unknown lowering 'jax_sim'"):

@@ -35,6 +35,12 @@ gather ``flat_send[0]`` into the trash row, so its bytes equal the
 reference's. This is how the reference ran its defining configuration,
 16,384 ranks x 256 aggregators, on one chip: the compacted layouts (rows
 only for ranks that send or receive) are what fit it in device memory.
+On the card a round is then one launch of the row-delivery kernel
+(:mod:`~tpu_aggcomm_torch.backends.deliver_rows`,
+``csrc/deliver_rows.cu``): every receive row the round writes is copied
+once from its send row, and the rep's first launch zeroes the rows its
+rounds leave unwritten, so the receive arena is a ``torch.empty``. On
+the CPU it stays the plain gather and ``index_put_`` into a zeroed arena.
 
 Deep barrier-free schedules (32 rounds or more) take the reference's
 padded-table form (every round at the widest round's width, pads into
@@ -82,6 +88,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from tpu_aggcomm_torch.backends.deliver_rows import (RowTables, ZeroRuns,
+                                                     arena_launcher,
+                                                     row_tables,
+                                                     unwritten_runs,
+                                                     zero_runs)
 from tpu_aggcomm_torch.backends.lanes import (lane_layout, lanes_to_bytes,
                                               to_reference, wrap_i32)
 from tpu_aggcomm_torch.backends.slow_delay import slow_delay, slow_tables
@@ -111,7 +122,8 @@ __all__ = ["TorchShardBackend", "block_round_tables", "recv_layout",
            "send_counts", "fill_rows", "schedule_edges"]
 
 
-def _apply_block_round(flat_send, recv, tab, nbar: int, F: int, coll):
+def _apply_block_round(flat_send, recv, tab, nbar: int, F: int, coll,
+                       zero: ZeroRuns | None = None, issue=None):
     """One throttle round on one process's shard: gather the round's
     outgoing blocks, one all_to_all over the group, the scatter of the
     landed payload, then the round's barriers as all-reduced tokens into
@@ -122,12 +134,18 @@ def _apply_block_round(flat_send, recv, tab, nbar: int, F: int, coll):
     ``tab`` is :class:`_RoundTab`. With one device the exchange is the
     identity, so neither the collective nor the padding mask runs (the
     reference's ``single_dev`` path) and a barrier is the one device's
-    own token. A process outside the mesh runs the same collectives
-    with empty blocks and adds 0 to every token."""
+    own token; on the card the round is one launch of the row-delivery
+    kernel, which also zeroes ``zero``'s rows (the rep's first round),
+    through the rep's ``issue`` (:func:`arena_launcher`) when given. A
+    process outside the mesh runs the same collectives with empty blocks
+    and adds 0 to every token."""
     import torch.distributed as dist
 
     if tab.splits is None:
-        recv[tab.sc] = flat_send[tab.pk]
+        if recv.is_cuda:
+            (issue or arena_launcher(flat_send, recv))(tab.rows, zero)
+        else:
+            recv[tab.sc] = flat_send[tab.pk]
         for _ in range(nbar):
             recv[F - 1, 0] = recv[0, 0]
         return recv
@@ -327,14 +345,16 @@ class _RoundTab:
     clamped to 0) and scatter (``sc``, pads to the trash row) indices in
     the group's rank order; under an exchange the ``(entries, 1)``
     padding mask and the per-rank chunk sizes of the all_to_all
-    (``splits``, 0 for processes outside the mesh), else None; and
-    whether this process holds ranks (``member``)."""
+    (``splits``, 0 for processes outside the mesh), else None; whether
+    this process holds ranks (``member``); and with no exchange on the
+    card, the row-delivery kernel's tables (``rows``), else None."""
 
     pk: torch.Tensor
     sc: torch.Tensor
     mask: torch.Tensor | None
     splits: list | None
     member: bool
+    rows: RowTables | None = None
 
 
 @dataclass
@@ -629,7 +649,10 @@ class TorchShardBackend:
                 mask_np, device=self.device).to(dt),
             splits=None if single else self._splits(
                 built.members if built.idx is not None else (), M),
-            member=built.idx is not None)
+            member=built.idx is not None,
+            rows=row_tables(pkl, scl, F=built.F, Fs=built.Fs,
+                            device=self.device)
+            if single and self.device.type == "cuda" else None)
 
     def _compiled(self, schedule) -> _Built:
         """The schedule's build on this process (cached): mesh, layouts,
@@ -678,18 +701,56 @@ class TorchShardBackend:
                                0 if scan else nbar))
         built.rounds = rounds
         coll, dev = built.coll, self.device
+        # with no exchange on the card the rounds are row-delivery
+        # launches: the arena is left unfilled and the first launch zeroes
+        # the rows the rep's rounds never write
+        deliver = dev.type == "cuda" and ndev == 1
+        zeros: dict = {}
+
+        def zero_of(upto):
+            """The zero runs of the rep truncated to ``upto`` rounds,
+            made once for each length."""
+            k = len(rounds[:upto])
+            if k not in zeros:
+                zeros[k] = zero_runs(unwritten_runs(
+                    F, [(tab.rows.dst, nbar)
+                        for (_r, tab, nbar) in rounds[:k]]), dev)
+            return zeros[k]
+
+        if deliver:
+            with trace.span("tables.rounds"):
+                zero_of(None)
+
+        def arena():
+            if deliver:
+                return torch.empty((F, w), dtype=dt, device=dev)
+            return torch.zeros((F, w), dtype=dt, device=dev)
+
+        def launch_of(flat_send, recv, upto):
+            """The rep's launcher and its first round's zero runs (None,
+            None off the row-delivery path)."""
+            if not deliver:
+                return None, None
+            return arena_launcher(flat_send, recv), zero_of(upto)
 
         def traced_rep(rec, flat_send, upto):
             """:func:`rep` inside a ``rep`` span: the receive arena's
             ``rep.arena``, then one ``rep.issue`` a round (its id and its
-            edges across the mesh)."""
+            edges across the mesh; on the first, the rows its launch
+            zeroes)."""
             with rec.span("rep"):
                 with rec.span("rep.arena"):
-                    recv = torch.zeros((F, w), dtype=dt, device=dev)
+                    recv = arena()
+                issue, zero = launch_of(flat_send, recv, upto)
                 for (r, tab, nbar), ne in zip(rounds[:upto], round_edges):
-                    with rec.span("rep.issue", round=r, edges=ne):
+                    args = {} if zero is None else {"zero_rows": zero.rows}
+                    with rec.span("rep.issue", round=r, edges=ne, **args):
                         _apply_block_round(flat_send, recv, tab, nbar, F,
-                                           coll)
+                                           coll, zero, issue)
+                    zero = None
+                if zero is not None:           # no round: the zeroing
+                    with rec.span("rep.issue", zero_rows=zero.rows):
+                        issue(None, zero)
                 if delay is not None:
                     slow_delay(flat_send[None], recv[None], delay)
             return recv
@@ -701,9 +762,14 @@ class TorchShardBackend:
             rec = trace.current()
             if rec is not None:
                 return traced_rep(rec, flat_send, upto)
-            recv = torch.zeros((F, w), dtype=dt, device=dev)
+            recv = arena()
+            issue, zero = launch_of(flat_send, recv, upto)
             for (_r, tab, nbar) in rounds[:upto]:
-                _apply_block_round(flat_send, recv, tab, nbar, F, coll)
+                _apply_block_round(flat_send, recv, tab, nbar, F, coll, zero,
+                                   issue)
+                zero = None
+            if zero is not None:                # no round: the zeroing
+                issue(None, zero)
             if delay is not None:
                 slow_delay(flat_send[None], recv[None], delay)
             return recv

@@ -2361,7 +2361,7 @@ def _print_roofline(sched, ndev: int = 1) -> None:
     H100 HBM floors, optimistic and fenced (equal: rounds are launches on
     one arena, no copy at a fence), the chained scaffold's extra, and the
     L2 figure; then torch_shard's over ``ndev`` devices (the reference's
-    jax_shard row)."""
+    jax_shard row; on one card the row-delivery kernel's rounds)."""
     from tpu_aggcomm_torch.harness.roofline import (HBM_H100_GBPS,
                                                     L2_COPY_H100_GBPS,
                                                     chain_overhead_bytes,

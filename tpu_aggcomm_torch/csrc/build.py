@@ -31,9 +31,9 @@ BUILD_DIR = CSRC.parents[1] / "build" / "torch_kernels"
 
 #: the kernel sources in this directory, one object each
 SOURCES = ("exchange.cu", "fused_rep.cu", "dma_steps.cu", "signal_probe.cu",
-           "slow_delay.cu")
+           "slow_delay.cu", "deliver_rows.cu")
 #: headers the sources include; part of the library's hash
-HEADERS = ("sync.cuh",)
+HEADERS = ("sync.cuh", "rows.cuh")
 
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-lineinfo", "-Xcompiler",

@@ -36,9 +36,10 @@
 //     barrier of sync.cuh in a cooperative launch. A round's copies, their
 //     reads of `send` included, are issued only after the previous round's
 //     fence: nothing of round k+1 is fetched early;
-//   - a warp's task is a chunk of one row: lanes move neighbouring 16-byte
-//     vectors (4-byte words or bytes when width or pointers do not allow
-//     16), four in flight per lane. The table entries of a warp's next
+//   - a warp's task is a chunk of one row (rows.cuh, shared with
+//     deliver_rows.cu): lanes move neighbouring 16-byte vectors (4-byte
+//     words or bytes when width or pointers do not allow 16), four in
+//     flight per lane. The table entries of a warp's next
 //     round are loaded before the fence (one per lane, shuffled to the
 //     warp when the task comes): tables, never data, so a round's copies
 //     still start with the send row's load after the fence;
@@ -48,6 +49,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rows.cuh"
 #include "sync.cuh"
 
 namespace {
@@ -55,7 +57,7 @@ namespace {
 constexpr int kFenceHand = 1;
 constexpr int kFenceCluster = 2;
 constexpr int kThreads = 128;
-constexpr int kVpt = 4;                   // vectors in flight per thread
+using aggcomm::kVpt;                      // vectors in flight per thread
 constexpr int kRowsPerCta = 4;            // row tasks a copying CTA takes
 constexpr long long kZeroCtaBytes = 128 * 1024;  // per zeroing CTA
 constexpr unsigned long long kMaxItems = 1ULL << 31;
@@ -145,49 +147,10 @@ __device__ __forceinline__ void copy_rows(const RepArgs& a, int e0, int e1,
       sr = a.src_row[e0 + r];
       dr = a.dst_row[e0 + r];
     }
-    const T* s =
-        reinterpret_cast<const T*>(a.send + (long long)sr * a.row_bytes);
-    T* d = reinterpret_cast<T*>(a.recv + (long long)dr * a.row_bytes);
-    T v[kVpt];
-#pragma unroll
-    for (int k = 0; k < kVpt; ++k) {
-      if (u0 + 32 * k < units) v[k] = s[u0 + 32 * k];
-    }
-#pragma unroll
-    for (int k = 0; k < kVpt; ++k) {
-      if (u0 + 32 * k < units) d[u0 + 32 * k] = v[k];
-    }
-  }
-}
-
-// a zeroing CTA's share (index zb of nz) of every never-written row; flat
-// zero row q maps to the arena through the runs
-template <typename T>
-__device__ __forceinline__ void zero_share(const RepArgs& a, unsigned zb,
-                                           unsigned nz) {
-  const unsigned units = units_of<T>(a), cpr = chunks_of<T>(a);
-  const unsigned lane = threadIdx.x & 31u, warps = blockDim.x >> 5;
-  const unsigned tasks = a.zero_rows * cpr;
-  int z = 0;  // the run of the warp's last row
-  for (unsigned t = zb * warps + (threadIdx.x >> 5); t < tasks;
-       t += nz * warps) {
-    const unsigned q = cpr == 1 ? t : t / cpr;
-    const unsigned u0 = (t - q * cpr) * 32 * kVpt + lane;
-    if (!((unsigned)a.zero_ptr[z] <= q && q < (unsigned)a.zero_ptr[z + 1])) {
-      int lo = 0, hi = a.n_zero_runs - 1;  // last run with zero_ptr <= q
-      while (lo < hi) {
-        const int mid = (lo + hi + 1) >> 1;
-        if ((unsigned)a.zero_ptr[mid] <= q) lo = mid; else hi = mid - 1;
-      }
-      z = lo;
-    }
-    T* d = reinterpret_cast<T*>(
-        a.recv + ((long long)a.zero_start[z] + (q - a.zero_ptr[z])) *
-                     a.row_bytes);
-#pragma unroll
-    for (int k = 0; k < kVpt; ++k) {
-      if (u0 + 32 * k < units) d[u0 + 32 * k] = T{};
-    }
+    aggcomm::copy_chunk<T, false>(
+        reinterpret_cast<const T*>(a.send + (long long)sr * a.row_bytes),
+        reinterpret_cast<T*>(a.recv + (long long)dr * a.row_bytes), u0,
+        units);
   }
 }
 
@@ -196,7 +159,10 @@ __global__ void fused_rep_kernel(RepArgs a) {
   stamp(a, 0);
   const int P = a.n_rounds > 1 ? a.n_rounds : 1;
   if ((int)blockIdx.x >= a.copy_ctas) {  // a zeroing CTA: no fence to keep
-    zero_share<T>(a, blockIdx.x - a.copy_ctas, gridDim.x - a.copy_ctas);
+    aggcomm::zero_share<T, false>(a.recv, a.row_bytes, a.zero_start,
+                                  a.zero_ptr, a.n_zero_runs, a.zero_rows,
+                                  blockIdx.x - a.copy_ctas,
+                                  gridDim.x - a.copy_ctas);
     stamp(a, 1 + 2 * P);
     return;
   }
@@ -222,13 +188,7 @@ __global__ void fused_rep_kernel(RepArgs a) {
   stamp(a, 1 + 2 * P);
 }
 
-int lane_size(const void* send, const void* recv, long long row_bytes) {
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(send) |
-                         reinterpret_cast<uintptr_t>(recv);
-  if (row_bytes % 16 == 0 && addr % 16 == 0) return 16;
-  if (row_bytes % 4 == 0 && addr % 4 == 0) return 4;
-  return 1;
-}
+using aggcomm::lane_size;
 
 template <int FENCE>
 const void* pick(int size) {

@@ -182,9 +182,10 @@ def _kernel_wrappers():
     ``.launches`` (and K1 its reps in ``.reps``)."""
     from tpu_aggcomm_torch.backends.cuda_dma import dma_steps
     from tpu_aggcomm_torch.backends.cuda_local import exchange
+    from tpu_aggcomm_torch.backends.deliver_rows import deliver_rows
     from tpu_aggcomm_torch.backends.slow_delay import slow_delay
     from tpu_aggcomm_torch.native.fuse import fused_rep
-    return (fused_rep, dma_steps, exchange, slow_delay)
+    return (fused_rep, dma_steps, exchange, slow_delay, deliver_rows)
 
 
 def _counters() -> dict:
@@ -224,8 +225,9 @@ def graph_chain(rep, n_recv_slots: int = 0, *, step=None):
     A wrapper's Python runs only while a graph is captured, when nothing
     launches; so the launch counters are restored after each capture and
     every replay adds what one pass of its block launches (one launch of
-    K2 a rep for ``cuda_fused``, one of the slow-rank delay a faulted rep
-    with a slow rank). A capture that fails raises
+    K2 a rep for ``cuda_fused``, one of the row delivery a round for
+    ``torch_shard`` with no group, one of the slow-rank delay a faulted
+    rep with a slow rank). A capture that fails raises
     :class:`ChainCaptureError`. Each capture is a ledger record of kind
     "graph-capture" with its block length."""
     state: dict = {"graphs": {}}

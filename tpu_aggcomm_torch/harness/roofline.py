@@ -70,24 +70,36 @@ recv arena (three int64 tables). It is not the ``cli tam --engine sim`` route
 delivered byte.
 
 ``lowering="torch_shard"`` prices the sharded tier's program
-(:mod:`tpu_aggcomm_torch.backends.torch_shard`) over ``ndev`` devices:
-each device zeroes its compacted flat recv buffer (F rows, trash row
-included), and each round gathers its padded block entries into a
-temporary (``index.Tensor``) and lands them (``index_put_``), ``ndev *
-ndev * M`` entries a round over the mesh (the widest round's M for every
-round under the padded-table lowering). Terms as above, summed over the
-devices: ``pad`` is the block padding (and the padded-table rounds'),
-``index_read`` the two int64 tables of every entry. With more than one
-device each round also masks the gathered blocks (one read and one write
-of the temporary, plus the mask: one lane an entry, in ``index_read``)
-and the all_to_all reads it and writes the landed blocks (two more
-passes, in ``intermediate``). A barrier token is one lane all-reduced
-into one lane of the trash row (the reference's ``psum`` of ``recv[0,
-0]``), no arena bytes: ``barrier`` is 0. The floor of a rep over ndev
-devices is the total over ``ndev`` cards' bandwidth (``devices``), a
-lower bound of the busiest card's time. The chained scaffold adds the
-XOR of every device's flat send buffer and the token's read of every
-live row's lane 0.
+(:mod:`tpu_aggcomm_torch.backends.torch_shard`) as the card runs it.
+Over ``ndev`` > 1 devices, under a process group, each device zeroes its
+compacted flat recv buffer (F rows, trash row included), and each round
+gathers its padded block entries into a temporary (``index.Tensor``) and
+lands them (``index_put_``), ``ndev * ndev * M`` entries a round over the
+mesh (the widest round's M for every round under the padded-table
+lowering). Terms as above, summed over the devices: ``pad`` is the block
+padding (and the padded-table rounds'), ``index_read`` the two int64
+tables of every entry; each round also masks the gathered blocks (one
+read and one write of the temporary, plus the mask: one lane an entry,
+in ``index_read``) and the all_to_all reads it and writes the landed
+blocks (two more passes, in ``intermediate``). A barrier token is one
+lane all-reduced into one lane of the trash row (the reference's
+``psum`` of ``recv[0, 0]``), no arena bytes: ``barrier`` is 0. The floor
+of a rep over ndev devices is the total over ``ndev`` cards' bandwidth
+(``devices``), a lower bound of the busiest card's time.
+
+On one card with no process group (``ndev`` 1) a round is one launch of
+the row-delivery kernel (:mod:`tpu_aggcomm_torch.backends.deliver_rows`):
+every edge's row is read once and written once (``gather_read``,
+``scatter_write``); nothing is materialized between them
+(``intermediate`` 0); ``zero_init`` is only the rows the rounds never
+write, zeroed by the first launch; the kernel reads two int32 tables an
+entry and the zero runs' two (``index_read``); a padded round's pads are
+one entry, send row 0 read and written into the trash row (``pad``). The
+CPU runs the one-device form of the group program instead (the zero
+fill, then a gather and an ``index_put_`` a round, no mask and no
+all_to_all): ``_shard_rep_bytes(schedule, 1)``, which is not the card's
+floor. The chained scaffold adds the XOR of every device's flat send
+buffer and the token's read of every live row's lane 0.
 
 The model imports the backends' table builders, and with them torch,
 only when a rep is priced; :func:`floor_seconds` and the constants need
@@ -188,7 +200,8 @@ def _shard_layout(p, ndev: int):
 
 
 def _shard_rep_bytes(schedule, ndev: int) -> RepBytes:
-    """One ``torch_shard`` rep over ``ndev`` devices (module docstring)."""
+    """One rep of ``torch_shard``'s group program over ``ndev`` devices
+    (at ``ndev`` 1 the CPU's; module docstring)."""
     import numpy as np
 
     from tpu_aggcomm_torch.backends.torch_shard import (block_round_tables,
@@ -223,6 +236,48 @@ def _shard_rep_bytes(schedule, ndev: int) -> RepBytes:
         barrier=0, pad=2 * (entries - nedges) * d, devices=ndev)
 
 
+def _deliver_rep_bytes(schedule) -> RepBytes:
+    """One ``torch_shard`` rep on one card with no group: a row-delivery
+    launch a round (module docstring)."""
+    import numpy as np
+
+    from tpu_aggcomm_torch.backends.deliver_rows import unwritten_runs
+    from tpu_aggcomm_torch.backends.torch_shard import (block_round_tables,
+                                                        recv_layout,
+                                                        schedule_edges,
+                                                        send_counts)
+    from tpu_aggcomm_torch.core.schedule import barrier_rounds_of
+    from tpu_aggcomm_torch.harness.verify import recv_slot_counts
+
+    p = schedule.pattern
+    n, d = p.nprocs, p.data_size
+    recv_base, F = recv_layout(np.asarray(recv_slot_counts(p)), 1, n)
+    send_base, _Fs = recv_layout(send_counts(p), 1, n)
+    edges = schedule_edges(schedule)
+    tabs = block_round_tables(edges, ndev=1, bsz=n, send_base=send_base,
+                              recv_base=recv_base, F=F)
+    barriers = barrier_rounds_of(schedule)
+    widest = max((m for (*_rest, m) in tabs), default=0)
+    scan = len(tabs) >= 32 and not barriers
+    rounds, pads = [], 0
+    for (r, _pk, sc, m) in tabs:
+        dst = sc.reshape(-1)
+        if scan and m < widest:          # the round's pads: one entry
+            dst = np.append(dst, F - 1)
+            pads += 1
+        rounds.append((dst, barriers.get(r, 0)))
+    runs = unwritten_runs(F, rounds)
+    zero_rows = sum(b - a for a, b in runs)
+    nedges = len(edges)
+    return RepBytes(
+        gather_read=nedges * d, scatter_write=nedges * d,
+        zero_init=zero_rows * d, intermediate=0, refence_walks=0,
+        rounds=max(len(tabs), 1), edges=nedges,
+        index_read=8 * (nedges + pads) + (4 * (2 * len(runs) + 1)
+                                          if runs else 0),
+        barrier=0, pad=2 * pads * d, devices=1)
+
+
 def _barrier_bytes(n: int, n_recv_slots: int, d: int) -> int:
     """One barrier token (``torch_sim._barrier_token`` and its store)."""
     lb = _lane_bytes(d)
@@ -243,7 +298,8 @@ def rep_bytes(schedule, *, lowering: str = "torch_sim", ndev: int = 1
                          "not the rank-axis rep_bytes")
     _check_lowering(lowering, ndev)
     if lowering == "torch_shard":
-        return _shard_rep_bytes(schedule, ndev)
+        return (_deliver_rep_bytes(schedule) if ndev == 1
+                else _shard_rep_bytes(schedule, ndev))
     from tpu_aggcomm_torch.backends.torch_sim import (_dense_tables,
                                                       _faulted,
                                                       _faulted_tables,

@@ -51,7 +51,7 @@ __all__ = ["MAX_FUSED_EDGES", "UnfusableScheduleError", "FusedExportError",
            "cross_check_export", "export_sweep", "render_export_sweep",
            "FusedTables", "plan_tables", "zero_runs_of", "fused_rep",
            "fused_rep_plain", "fused_plan", "check_fence", "build_fused_rep",
-           "FusedFenceError"]
+           "FusedFenceError", "runs_of"]
 
 #: Hard ceiling on the per-kernel copy count: each edge unrolls to one
 #: DMA start + wait pair in the Mosaic instruction stream, so a flagship
@@ -394,7 +394,13 @@ def zero_runs_of(n: int, n_recv_rows: int, dst, dslot) -> list:
     free = np.ones(n * n_recv_rows, dtype=bool)
     free[np.asarray(dst, dtype=np.int64) * n_recv_rows
          + np.asarray(dslot, dtype=np.int64)] = False
-    edges = np.diff(np.concatenate([[0], free.astype(np.int8), [0]]))
+    return runs_of(free)
+
+
+def runs_of(mask: np.ndarray) -> list:
+    """The indices where a 1-D bool ``mask`` holds, as ``(start, stop)``
+    runs of contiguous indices, in order."""
+    edges = np.diff(np.concatenate([[0], mask.astype(np.int8), [0]]))
     return list(zip(np.flatnonzero(edges == 1).tolist(),
                     np.flatnonzero(edges == -1).tolist()))
 
