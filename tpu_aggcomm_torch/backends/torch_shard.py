@@ -165,11 +165,12 @@ def _apply_block_round(flat_send, recv, tab, nbar: int, F: int, coll,
 
 def _schedule_edges(schedule: Schedule) -> np.ndarray:
     """(src, dst, sslot, dslot, round) int64 rows for every payload edge,
-    with receive slots resolved (vectorized recv_slot_table lookup — the
-    dict walk is O(E) Python either way, but the per-edge joins here are
-    numpy). Collective schedules (m=5/8) synthesize the full pattern as a
-    single round: the Alltoallw's whole exchange is one program step, as
-    in the reference (mpi_test.c:627-645).
+    with receive slots resolved: :meth:`Schedule.data_edges`, which m=1
+    and m=2 give from the pattern in numpy while their programs are
+    unbuilt, and any other schedule from an O(E) Python walk of its ops.
+    Collective schedules (m=5/8) synthesize the full pattern as a single
+    round: the Alltoallw's whole exchange is one program step, as in the
+    reference (mpi_test.c:627-645).
 
     Fault handling: dead-link-repaired schedules carry relay staging rows
     and chan != 0 detour edges the compacted block layout cannot
@@ -204,27 +205,13 @@ def _schedule_edges(schedule: Schedule) -> np.ndarray:
             np.stack([srcs, dsts, sslots, dslots, rounds],
                      axis=1).astype(np.int64), schedule)
 
-    edges = schedule.data_edges()
-    if len(edges) == 0:
-        return edges.reshape(0, 5)
-    rt = schedule.recv_slot_table()
-    keys = np.empty(len(rt), dtype=np.int64)
-    vals = np.empty(len(rt), dtype=np.int64)
-    for i, ((s, d), slot) in enumerate(rt.items()):
-        keys[i] = s * n + d
-        vals[i] = slot
-    order = np.argsort(keys)
-    keys, vals = keys[order], vals[order]
-    ekeys = edges[:, 0] * n + edges[:, 1]
-    pos = np.searchsorted(keys, ekeys)
-    out = edges.copy()
-    out[:, 3] = vals[pos]
-    return _drop_dead_edges(out, schedule)
+    return _drop_dead_edges(schedule.data_edges(), schedule)
 
 
 #: the last schedule's edge table: (weak reference to it, its table). The
-#: flagship's walk takes tens of host seconds and its table is 168 MB, so
-#: the backend, the roofline and the --ndev view share one
+#: flagship's table is 168 MB (an op walk of tens of host seconds for a
+#: method with no closed form), so the backend, the roofline and the
+#: --ndev view share one
 _EDGE_MEMO: list = []
 
 
@@ -283,15 +270,18 @@ def block_round_tables(edges: np.ndarray, *, ndev: int, bsz: int,
     -1 pad); scat: (ndev, ndev, M) flat local-recv indices (recv_base[dst]
     + dslot), b-major (scat[b, a, j] matches the all_to_all output block
     from device a), trash = F - 1 for padding. Vectorized group-by, so the
-    flagship edge counts (4M+ edges) stay in numpy.
+    flagship edge counts (4M+ edges) stay in numpy: the edges are sorted
+    by round once (stably, so each round keeps its rows' order) and each
+    round is a slice of that.
     """
     trash = F - 1
     out = []
     if len(edges) == 0:
         return out
-    n_rounds = int(edges[:, 4].max()) + 1
-    for r in range(n_rounds):
-        sel = edges[edges[:, 4] == r]
+    by_round = edges[np.argsort(edges[:, 4], kind="stable")]
+    ends = np.cumsum(np.bincount(by_round[:, 4]))
+    for r in range(len(ends)):
+        sel = by_round[ends[r - 1] if r else 0:ends[r]]
         if len(sel) == 0:
             continue
         src, dst, sslot, dslot = sel[:, 0], sel[:, 1], sel[:, 2], sel[:, 3]

@@ -27,6 +27,7 @@ behavior and the deviation only affects reps ≥ 2 of those methods.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace as _replace
+from functools import partial
 from typing import Callable
 
 import numpy as np
@@ -131,10 +132,40 @@ def _dense_slots(p: AggregatorPattern):
 # --------------------------------------------------------------------------
 # m=1 / m=2 — canonical unordered methods (mpi_test.c:1748-1824, 1871-1950)
 
+def _steps(p: AggregatorPattern) -> int:
+    """m=1/m=2's throttle rounds: 1 unthrottled, else ceil(nprocs / -c)."""
+    if p.comm_size >= p.nprocs:
+        return 1
+    return (p.nprocs + p.comm_size - 1) // p.comm_size
+
+
 def gen_all_to_many(p: AggregatorPattern) -> Schedule:
     """m=1: every rank Issends its cb_nodes slabs up front; aggregators drain
     sources in ``steps`` strided rounds of throttled Irecv+Waitall
-    (mpi_test.c:1748-1824). Transfer round of edge (s → agg) is s % steps."""
+    (mpi_test.c:1748-1824). Transfer round of edge (s → agg) is s % steps.
+    The programs are built on first read; the edges come from
+    :func:`_all_to_many_edges` until then."""
+    s = Schedule(p, 1, "All to many", partial(_all_to_many_programs, p),
+                 uses_rendezvous=True)
+    s.closed_form = partial(_all_to_many_edges, p)
+    return s
+
+
+def _all_to_many_edges(p: AggregatorPattern) -> np.ndarray:
+    """m=1's data edges from the pattern: rank r's k-th Issend goes to
+    ``rank_list[k]`` from send slot k into receive slot r, in round
+    r % steps; rank-major, k-minor, as the op walk gives them."""
+    procs, cb = p.nprocs, p.cb_nodes
+    src = np.repeat(np.arange(procs, dtype=np.int64), cb)
+    return np.stack([src,
+                     np.tile(np.asarray(p.rank_list, dtype=np.int64), procs),
+                     np.tile(np.arange(cb, dtype=np.int64), procs),
+                     src,
+                     src % _steps(p)], axis=1)
+
+
+def _all_to_many_programs(p: AggregatorPattern) -> list[list[Op]]:
+    """m=1's per-rank op programs."""
     procs, cb, ds = p.nprocs, p.cb_nodes, p.data_size
     agg_index = p.agg_index
     progs = []
@@ -165,12 +196,38 @@ def gen_all_to_many(p: AggregatorPattern) -> Schedule:
                 b.waitall(recv_toks, TimerBucket.RECV_WAIT, rnd=k)
             b.waitall(send_toks, TimerBucket.SEND_WAIT, rnd=steps - 1)
         progs.append(b.ops)
-    return Schedule(p, 1, "All to many", progs, uses_rendezvous=True)
+    return progs
 
 
 def gen_many_to_all(p: AggregatorPattern) -> Schedule:
     """m=2: mirror of m=1 — recvs pre-posted, aggregator Issends strided with
-    a per-round send Waitall (mpi_test.c:1871-1950)."""
+    a per-round send Waitall (mpi_test.c:1871-1950). The programs are built
+    on first read; the edges come from :func:`_many_to_all_edges` until
+    then."""
+    s = Schedule(p, 2, "Many to all", partial(_many_to_all_programs, p),
+                 uses_rendezvous=True)
+    s.closed_form = partial(_many_to_all_edges, p)
+    return s
+
+
+def _many_to_all_edges(p: AggregatorPattern) -> np.ndarray:
+    """m=2's data edges from the pattern: aggregator r (ascending rank)
+    Issends to rank i from send slot i into receive slot ``agg_index[r]``
+    in round i % steps, its destinations round by round (i = k, k + steps,
+    ... in round k), as the op walk gives them."""
+    procs = p.nprocs
+    agg_index = p.agg_index
+    aggs = np.flatnonzero(agg_index >= 0)
+    steps = _steps(p)
+    dst = np.argsort(np.arange(procs, dtype=np.int64) % steps, kind="stable")
+    dsts = np.tile(dst, len(aggs))
+    return np.stack([np.repeat(aggs, procs), dsts, dsts,
+                     np.repeat(agg_index[aggs], procs),
+                     dsts % steps], axis=1).astype(np.int64)
+
+
+def _many_to_all_programs(p: AggregatorPattern) -> list[list[Op]]:
+    """m=2's per-rank op programs."""
     procs, cb, ds = p.nprocs, p.cb_nodes, p.data_size
     agg_index = p.agg_index
     progs = []
@@ -199,7 +256,7 @@ def gen_many_to_all(p: AggregatorPattern) -> Schedule:
                 b.waitall(send_toks, TimerBucket.SEND_WAIT, rnd=k)
             b.waitall(recv_toks, TimerBucket.RECV_WAIT, rnd=steps - 1)
         progs.append(b.ops)
-    return Schedule(p, 2, "Many to all", progs, uses_rendezvous=True)
+    return progs
 
 
 # --------------------------------------------------------------------------

@@ -11,7 +11,12 @@ Two views of the same schedule:
 - **per-rank op programs** (`Schedule.programs`) — the ground truth, faithful
   to the reference's per-rank MPI call sequences. The local oracle and the
   native C++ runtime execute these directly, preserving rendezvous and
-  blocking semantics.
+  blocking semantics. m=1 and m=2 build their programs only when
+  ``programs`` is first read: until then their closed form
+  (``Schedule.closed_form``) gives the edges straight from the pattern,
+  and the barrier signature is empty (they have no barriers), so a
+  backend that needs only the edge view (``torch_shard``'s build) never
+  makes one ``Op`` per message.
 - **global round/edge view** (`Schedule.rounds()`) — edges grouped by the
   round in which their transfer completes. The JAX/ICI backend lowers each
   round to masked collective steps (ppermute batches / all_to_all); this is
@@ -30,7 +35,8 @@ separate channel — the dup'ed signal_comm of mpi_test.c:1252).
 from __future__ import annotations
 
 import enum
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Callable
 
 import numpy as np
 
@@ -53,10 +59,19 @@ class ScheduleAsymmetryError(AssertionError):
     """
 
 
+def _closed_form(schedule):
+    """The schedule's closed form while its programs are unbuilt, else
+    None (built programs are the ground truth, edits included)."""
+    unbuilt = getattr(schedule, "unbuilt_closed_form", None)
+    return unbuilt() if unbuilt is not None else None
+
+
 def barrier_signatures(schedule) -> list:
     """Per-rank barrier signature: the tuple of round tags of each
     rank's BARRIER ops, in program order. Equal across ranks iff the
     schedule is barrier-SPMD-symmetric."""
+    if _closed_form(schedule) is not None:
+        return [()] * schedule.nprocs
     progs = getattr(schedule, "programs", None) or ()
     return [tuple(op.round for op in prog if op.kind is OpKind.BARRIER)
             for prog in progs]
@@ -67,8 +82,11 @@ def check_barrier_symmetry(schedule) -> tuple:
 
     Raises :class:`ScheduleAsymmetryError` naming the first divergent
     rank otherwise. O(total ops) — cheap next to anything a signature
-    consumer does with the result.
+    consumer does with the result; a schedule answering from its closed
+    form has no barriers.
     """
+    if _closed_form(schedule) is not None:
+        return ()
     sigs = barrier_signatures(schedule)
     ref = sigs[0] if sigs else ()
     for rank, sig in enumerate(sigs):
@@ -179,14 +197,37 @@ class Op:
     to_stage: bool = False
 
 
+class _Programs:
+    """The ``programs`` field: a list of op programs, or a function that
+    builds them, called on the first read and replaced by its result.
+    Raises AttributeError on the class, so the field keeps no default."""
+
+    def __set_name__(self, owner, name):
+        self.slot = "_" + name
+
+    def __get__(self, obj, owner=None):
+        if obj is None:
+            raise AttributeError(self.slot[1:])
+        progs = obj.__dict__[self.slot]
+        if callable(progs):
+            progs = obj.__dict__[self.slot] = progs()
+        return progs
+
+    def __set__(self, obj, value):
+        obj.__dict__[self.slot] = value
+
+
 @dataclass
 class Schedule:
-    """A compiled method: one op program per rank plus pattern metadata."""
+    """A compiled method: one op program per rank plus pattern metadata.
+    ``programs`` may be given as a function of no arguments that builds
+    them on first read; such a schedule carries a ``closed_form`` that
+    its edge and barrier views read until then."""
 
     pattern: AggregatorPattern
     method_id: int
     name: str              # reference label, e.g. "All to many balanced"
-    programs: list[list[Op]]
+    programs: list[list[Op]] = _Programs()
     collective: bool = False  # True for alltoallw-style dense methods
     uses_rendezvous: bool = False
     per_rep: bool = True   # program covers ONE rep; harness loops ntimes
@@ -204,10 +245,24 @@ class Schedule:
     #: Directed (src, dst) pattern edges that the fault killed and the
     #: repair rerouted — validate() exempts these from chan-0 coverage.
     dead_edges: tuple[tuple[int, int], ...] = ()
+    #: Closed form of a barrier-free schedule built with deferred
+    #: programs: a function of no arguments returning the (E, 5) int64
+    #: rows of :meth:`data_edges` from the pattern (chan 0, no staging),
+    #: in the order the op walk gives them. Not an init field, so
+    #: ``dataclasses.replace`` (the repair pass, which passes new
+    #: programs) never carries it over.
+    closed_form: Callable[[], np.ndarray] | None = field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def nprocs(self) -> int:
         return self.pattern.nprocs
+
+    def unbuilt_closed_form(self) -> Callable[[], np.ndarray] | None:
+        """:attr:`closed_form` while ``programs`` has not been built."""
+        if self.closed_form is None or not callable(self.__dict__["_programs"]):
+            return None
+        return self.closed_form
 
     def data_edges(self) -> np.ndarray:
         """All payload-carrying (src, dst, slot_src, slot_dst, round) tuples.
@@ -219,8 +274,12 @@ class Schedule:
         Relay hops (chan != 0) are included — they are real traffic; their
         ``slot_dst`` is the logical landing index (staging rows count past
         the pattern recv slots). Consumers that must distinguish staging
-        use :meth:`data_edges_ext`.
+        use :meth:`data_edges_ext`. A schedule whose programs are unbuilt
+        answers from its closed form, the same rows in the same order.
         """
+        cf = self.unbuilt_closed_form()
+        if cf is not None:
+            return cf()
         return self.data_edges_ext()[:, :5]
 
     def data_edges_ext(self) -> np.ndarray:
@@ -229,6 +288,10 @@ class Schedule:
         the source rank's staging row ``slot_src``; bit 1 = the receive
         lands in the destination's staging row ``slot_dst``. chan-0 rows
         reproduce :meth:`data_edges` exactly on healthy schedules."""
+        cf = self.unbuilt_closed_form()
+        if cf is not None:
+            e = cf()
+            return np.concatenate([e, np.zeros((len(e), 2), np.int64)], axis=1)
         rows = []
         rtable = self.recv_slot_table()
         relay = self.relay_recv_table()
