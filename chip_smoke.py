@@ -27,7 +27,9 @@ first failure (no phase's failure is caught):
    eager times, its fence (the cluster barrier at the README shape, the
    hand-rolled one at n=256) and the split of a rep from the kernel's
    %globaltimer stamps (launch, copies, fences), the zeroing alone,
-   beside the bound;
+   beside the bound, and the host dispatch of its rep by the bound launch
+   and by the full argument check (mean of 10,000 reps, no profiler),
+   with the bound launch's hit share (1.0);
 4. kernel K3 (``csrc/dma_steps.cu``, one launch per rep) through
    ``cuda_dma`` (lockstep) and ``cuda_dma_conc`` (concurrent): its
    co-resident CTA cap and the card's one-way signal latency from an
@@ -569,6 +571,39 @@ def stamp_split(send, tabs, device_ms: float, runs: int = 20) -> dict:
                 launch_us=device_ms * 1e3 - span_us)
 
 
+def k2_dispatch_us(rep, send, reps: int = 10000) -> dict:
+    """The host dispatch of K2's rep as the benchmark reads it (the host
+    wall from the call to its return, a synchronize after each; mean over
+    ``reps``, no profiler), by the bound launch (``rep``, whose tables are
+    bound) and by the full argument check (the same tables unbound); with
+    the bound path's hit share, 1 - full checks / launches, over its
+    loop."""
+    import dataclasses
+
+    import torch
+
+    from tpu_aggcomm_torch.native.fuse import fused_rep
+
+    unbound = dataclasses.replace(rep.tables, bound=None)
+    paths = {"bound": rep, "full": lambda x: fused_rep(x, unbound)}
+    out = {}
+    for name, fn in paths.items():
+        for _ in range(100):
+            fn(send)
+        torch.cuda.synchronize()
+        launches, checks = fused_rep.launches, fused_rep.full_checks
+        total = 0.0
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn(send)
+            total += time.perf_counter() - t0
+            torch.cuda.synchronize()
+        out[f"{name}_us"] = total / reps * 1e6
+        out[f"{name}_hit_share"] = 1 - (fused_rep.full_checks - checks) \
+            / (fused_rep.launches - launches)
+    return out
+
+
 def phase_k2(dev) -> dict:
     """K2 through cuda_fused for every fusable method, then into a
     poisoned recv against the plain version; the split of a rep and its
@@ -631,6 +666,11 @@ def phase_k2(dev) -> dict:
                    zero_bytes=zero_bytes, zeroing_alone_ms=zero_ms,
                    us_per_fence=split["us_per_fence"], **launch, split=split)
         row["chained_ms"] = backend.measure_per_rep(s) * 1e3
+        row["dispatch"] = k2_dispatch_us(backend.one_rep(s), send)
+        check(row["dispatch"]["bound_hit_share"] == 1.0
+              and row["dispatch"]["full_hit_share"] == 0.0,
+              f"K2 m=1 {cfg}: the bound launch was not taken on every "
+              f"rep, or the unbound tables took it")
         row["copy_bound_ms"] = 2 * edges * d / HBM_BYTES_PER_S * 1e3
         # least bytes: each edge row read once and written once, every
         # never-written row written once (zero)
@@ -652,7 +692,11 @@ def phase_k2(dev) -> dict:
               f"{row['plain_ms'] * 1e3:.3f} us device, "
               f"{row['plain_eager_ms'] * 1e3:.3f} us eager; bound "
               f"{row['bound_ms'] * 1e3:.3f} us (copies "
-              f"{row['copy_bound_ms'] * 1e3:.3f})", flush=True)
+              f"{row['copy_bound_ms'] * 1e3:.3f}); host dispatch "
+              f"{row['dispatch']['bound_us']:.3f} us bound, "
+              f"{row['dispatch']['full_us']:.3f} us with the full "
+              f"check (mean of 10000); bound hit share "
+              f"{row['dispatch']['bound_hit_share']:.4f}", flush=True)
         rows[n] = row
     # one recv cell written in rounds 0 and 2: the later row lands
     plan = FusePlan(nprocs=2, data_size=2048, n_send_slots=2, n_recv_slots=2,

@@ -9,6 +9,8 @@ fused lowering writes no barrier tokens), must equal
 fusable dispatched methods.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -28,6 +30,7 @@ from tpu_aggcomm_torch.core.pattern import AggregatorPattern  # noqa: E402
 from tpu_aggcomm_torch.harness.runner import (ExperimentConfig,  # noqa: E402
                                               run_experiment)
 from tpu_aggcomm_torch.native import fuse  # noqa: E402
+from tpu_aggcomm_torch.obs import trace  # noqa: E402
 
 FUSABLE = [1, 2, 3, 4, 6, 7, 9, 10, 11, 12, 13, 14, 17, 18, 19, 20]
 
@@ -228,3 +231,151 @@ def test_fence_timeout_record_raises_by_name_and_clears():
         fuse.check_fence(tabs)
     assert not tabs.sync.any()
     fuse.check_fence(tabs)
+
+
+class _Entry:
+    """A stand-in for one of K2's C entries: records its arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """K2's C entries, the current device and the current stream replaced
+    by stand-ins, so that binding and both launches run on the CPU:
+    returns the 17-argument entry and the bound one."""
+    from types import SimpleNamespace
+    full, bound = _Entry(), _Entry()
+    monkeypatch.setattr(fuse, "_c_lib", lambda: (full, None, bound))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(
+                            cuda_stream=0x5000 + device))
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda device: 0x5000 + device, raising=False)
+    return full, bound
+
+
+BLOCK_CELLS = ([(m, 2048) for m in FUSABLE] + [(1, 36), (1, 30), (2, 6)])
+
+
+@pytest.mark.parametrize("method,d", BLOCK_CELLS,
+                         ids=[f"m{m}-d{d}" for m, d in BLOCK_CELLS])
+def test_bound_block_carries_the_full_launch_arguments(fake_card, method, d):
+    """The packed block holds exactly what the 17-argument call passes
+    besides the arenas, the stamps and the stream; the bound send and
+    arena are the plan's lane layout."""
+    full, _bound = fake_card
+    s = compile_method(method, AggregatorPattern(32, 14, data_size=d,
+                                                 comm_size=3))
+    plan = fuse.fuse_plan(s)
+    tabs = fuse.plan_tables(plan, "cpu")
+    assert tabs.bound is None                       # the CPU binds nothing
+    b = fuse.bind_rep(tabs, plan.data_size)
+    send = torch.zeros(tuple(b.send_shape), dtype=b.dtype)
+    out = torch.empty_like(b.arena)
+    assert out.is_contiguous() and b.arena.untyped_storage().nbytes() == \
+        b.dtype.itemsize
+    assert tuple(out.shape) == (tabs.nprocs, tabs.n_recv_rows, send.shape[2])
+    assert send.shape[2] * send.element_size() == d
+    assert b.dtype == (torch.uint8 if d % 4 else torch.int32)
+    fuse._launch(send, tabs, out, None)
+    (args,) = full.calls
+    blk = b.block
+    assert b.ref._obj is blk and b.device_index == 3
+    packed = [blk.round_ptr, blk.src_row, blk.dst_row, blk.zero_start,
+              blk.zero_ptr, blk.n_rounds, blk.n_zero_runs, blk.zero_rows,
+              blk.row_bytes, blk.max_round_edges, blk.sync, blk.timeout_ns,
+              blk.device]
+    assert [v or 0 for v in packed] == \
+        [v or 0 for v in args[2:14] + args[16:]]
+    assert args[:2] == (send.data_ptr(), out.data_ptr())
+    assert args[14:16] == (None, 0x5003)            # no stamps; the stream
+    assert blk.n_rounds == len(plan.rounds) and blk.row_bytes == d
+
+
+def test_bound_rep_counts_launches_not_full_checks(fake_card):
+    """The bound launch is one call of the bound entry (block, send, out,
+    the current stream) and one launch; the full one counts a launch and
+    a full check; the CPU path counts neither."""
+    full, bound = fake_card
+    _rs, s = _pair(1)
+    tabs = fuse.plan_tables(fuse.fuse_plan(s), "cpu")
+    send = from_reference(ref_send(_rs.pattern, 0), "cpu")
+    launches, checks = fuse.fused_rep.launches, fuse.fused_rep.full_checks
+    fuse.fused_rep(send, tabs)
+    fuse.fused_rep(send, tabs, out=torch.empty_like(fuse.fused_rep(send,
+                                                                   tabs)))
+    assert (fuse.fused_rep.launches, fuse.fused_rep.full_checks) == \
+        (launches, checks)
+    # bound to the CPU's device number (-1), so that a CPU send is taken
+    b = dataclasses.replace(fuse.bind_rep(tabs, 32), device_index=-1)
+    on = dataclasses.replace(tabs, bound=b)
+    got = fuse.fused_rep(send, on)
+    assert bound.calls == [(b.ref, send.data_ptr(), got.data_ptr(),
+                            0x5000 - 1)] and not full.calls
+    assert got.shape == (8, tabs.n_recv_rows, 8) and got.dtype == send.dtype
+    assert (fuse.fused_rep.launches, fuse.fused_rep.full_checks) == \
+        (launches + 1, checks)
+    fuse._launch(send, tabs, got, None)
+    assert (fuse.fused_rep.launches, fuse.fused_rep.full_checks) == \
+        (launches + 2, checks + 1)
+    # traced: the same call of the bound entry inside the rep's spans
+    rec = trace.enable(manifest=False)
+    try:
+        got = fuse.fused_rep(send, on)
+    finally:
+        trace.disable()
+    assert bound.calls[-1] == (b.ref, send.data_ptr(), got.data_ptr(),
+                               0x5000 - 1)
+    spans = [e for e in rec.events if e.get("ev") == "host_span"]
+    assert [e["name"] for e in spans] == ["rep.arena", "rep.issue", "rep"]
+    assert spans[-1]["args"] == {"full_checks": checks + 1}
+    assert fuse.fused_rep.launches == launches + 3
+
+
+def _refusal(fn):
+    with pytest.raises(ValueError) as e:
+        fn()
+    return str(e.value)
+
+
+REFUSED = {
+    "shape": lambda send: (send[:, :2].contiguous(), None),
+    "dtype": lambda send: (send.to(torch.int64), None),
+    "contiguous": lambda send: (send.transpose(0, 1).contiguous()
+                                .transpose(0, 1), None),
+    "device": lambda send: (send.to("meta"), None),
+    "out": lambda send: (send, torch.empty(3, dtype=send.dtype)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+@pytest.mark.parametrize("traced", [False, True])
+def test_bound_tables_refuse_as_unbound_ones(fake_card, case, traced):
+    """A send the bound launch does not take falls to the full check,
+    which refuses with the message the unbound tables give. Bound to the
+    CPU's device number (-1) but for the device case, which sends from
+    another device than the bound one's."""
+    _rs, s = _pair(1)
+    tabs = fuse.plan_tables(fuse.fuse_plan(s), "cpu")
+    b = fuse.bind_rep(tabs, 32)
+    if case != "device":
+        b = dataclasses.replace(b, device_index=-1)
+    on = dataclasses.replace(tabs, bound=b)
+    send, out = REFUSED[case](from_reference(ref_send(_rs.pattern, 0),
+                                             "cpu"))
+    if traced:
+        trace.enable(manifest=False)
+    try:
+        want = _refusal(lambda: fuse.fused_rep(send, tabs, out))
+        got = _refusal(lambda: fuse.fused_rep(send, on, out))
+    finally:
+        trace.disable()
+    assert got == want and "fused_rep: " in got
+    assert not fake_card[1].calls

@@ -193,6 +193,113 @@ def test_fused_kernel_two_writer_plan_keeps_the_later_row(cuda):
     assert torch.equal(got, want) and torch.equal(got[1, 0], send[0, 1])
 
 
+BOUND_SHAPES = {"readme": (32, 14, 3), "n256": (256, 16, 16)}
+
+
+def _bound_rep(n, a, c, d, device):
+    s = compile_method(1, AggregatorPattern(n, a, data_size=d, comm_size=c))
+    rep = CudaFusedBackend(device=device).one_rep(s)
+    send = from_reference(dense_send_lanes(s.pattern, 0), device)
+    assert rep.tables.bound.takes(send)
+    return rep, send
+
+
+def _counts():
+    return fused_rep.launches, fused_rep.full_checks
+
+
+@pytest.mark.parametrize("d,lane", [(2048, 16), (256, 16), (36, 4), (6, 1)])
+@pytest.mark.parametrize("shape,fence", [("readme", "cluster"),
+                                         ("n256", "hand")])
+def test_bound_rep_equals_plain_in_a_poisoned_arena(cuda, shape, fence, d,
+                                                    lane):
+    """The bound launch (no full check) into an arena the caching
+    allocator hands back filled with 0xA5, at each lane width, under the
+    cluster fence (README) and the hand-rolled one (n=256 a=16 c=16)."""
+    rep, send = _bound_rep(*BOUND_SHAPES[shape], d, cuda)
+    tabs = rep.tables
+    launch = fused_plan(send, tabs)
+    assert (launch["fence"], launch["lane_bytes"]) == (fence, lane)
+    want = fused_rep_plain(send, tabs)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        poison = _poisoned(tabs, send)
+        ptr = poison.data_ptr()
+        del poison
+        before = _counts()
+        got = rep(send)
+        torch.cuda.synchronize()
+        assert got.data_ptr() == ptr          # the poisoned block, reused
+        assert _counts() == (before[0] + 1, before[1])
+        check_fence(tabs)
+        assert torch.equal(got, want)
+
+
+def test_out_stamps_and_other_lanes_take_the_full_check(cuda):
+    """``out=``, ``stamps=`` and a send outside the bound key (byte lanes
+    of an int32 plan) launch as before, each after the full check."""
+    rep, send = _bound_rep(*BOUND_SHAPES["readme"], 2048, cuda)
+    tabs = rep.tables
+    want = fused_rep_plain(send, tabs)
+    launch = fused_plan(send, tabs)
+    stamps = torch.zeros((launch["grid"], 2 + 2 * max(tabs.n_rounds, 1)),
+                         dtype=torch.int64, device=cuda)
+    before = _counts()
+    out = _poisoned(tabs, send)
+    assert fused_rep(send, tabs, out=out) is out
+    stamped = fused_rep(send, tabs, stamps=stamps)
+    as_bytes = send.view(torch.uint8)
+    assert not tabs.bound.takes(as_bytes)
+    got_bytes = fused_rep(as_bytes, tabs)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0] + 3, before[1] + 3)
+    check_fence(tabs)
+    assert torch.equal(out, want) and torch.equal(stamped, want)
+    assert torch.equal(got_bytes, fused_rep_plain(as_bytes, tabs))
+    assert (stamps[:, 0] > 0).all() and (stamps[:, -1] >= stamps[:, 0]).all()
+    with pytest.raises(ValueError, match="out must be"):
+        fused_rep(send, tabs, out=torch.empty(3, dtype=send.dtype,
+                                              device=cuda))
+    with pytest.raises(ValueError, match="send on cpu"):
+        fused_rep(send.cpu(), tabs)
+    assert _counts() == (before[0] + 3, before[1] + 3)
+
+
+def test_bound_rep_launches_on_the_current_side_stream(cuda):
+    """Under ``torch.cuda.stream(side)`` the bound launch is ordered after
+    what ``side`` holds: a copy into the send arena queued behind a long
+    sleep there, which a launch on another stream would overtake."""
+    rep, fresh = _bound_rep(*BOUND_SHAPES["readme"], 2048, cuda)
+    send = torch.zeros_like(fresh)
+    want = fused_rep_plain(fresh, rep.tables)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    before = _counts()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)        # about 0.1 s at 1.98 GHz
+        send.copy_(fresh)
+        got = rep(send)
+    assert not side.query()                   # the launch waits its turn
+    side.synchronize()
+    assert _counts() == (before[0] + 1, before[1])
+    check_fence(rep.tables)
+    assert torch.equal(got, want)
+
+
+def test_closed_loop_takes_no_full_check(cuda):
+    """The benchmark's loop: a rep, then a synchronize, 100 times; every
+    rep takes the bound launch."""
+    rep, send = _bound_rep(*BOUND_SHAPES["readme"], 2048, cuda)
+    before = _counts()
+    for _ in range(100):
+        got = rep(send)
+        torch.cuda.synchronize()
+    assert _counts() == (before[0] + 100, before[1])
+    check_fence(rep.tables)
+    assert torch.equal(got, fused_rep_plain(send, rep.tables))
+
+
 @pytest.mark.parametrize("backend", [TorchSimBackend, CudaFusedBackend])
 def test_backends_verify_on_the_card(cuda, backend):
     s = compile_method(1, AggregatorPattern(32, 14, data_size=2048,
@@ -402,12 +509,13 @@ def test_graph_chain_equals_the_eager_chain(cuda, backend, iters):
     want = chained.eager_chain(rep, n_recv)(iters)(send0)
     make_chain = b._chain_factory(rep, p)
     for first in (True, False):
-        before = fused_rep.launches
+        before, checks = fused_rep.launches, fused_rep.full_checks
         got = make_chain(iters)(send0)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
         if backend is CudaFusedBackend:
             assert fused_rep.launches - before == iters + first
+            assert fused_rep.full_checks == checks   # the bound launch
             check_fence(rep.tables)
     assert not torch.equal(got, send0)
 

@@ -16,6 +16,10 @@
 // counts zero_ptr[Z+1]. Rows are exactly `row_bytes` wide (no Mosaic
 // padding).
 //
+// Everything but send, recv and the stream is fixed once the tables are
+// built: the host binds it once as a RepBlock, and a rep is then one call
+// of aggcomm_fused_rep_bound with those three.
+//
 // What bounds it on an H100: bytes, E*d read and E*d written by the copies
 // plus the never-written rows zeroed once; at the README shape (11 rounds
 // of about 41 rows) the chain of round fences, not the bytes. The design:
@@ -248,6 +252,28 @@ cudaError_t cluster_cap(const void* fn, int* out) {
   return cudaSuccess;
 }
 
+// How many CTAs of this instantiation one SM holds (the cooperative
+// launch's cap). Once per kernel.
+cudaError_t blocks_per_sm(const void* fn, int* out) {
+  static const void* fns[32];
+  static int counts[32];
+  static int used = 0;
+  for (int i = 0; i < used; ++i) {
+    if (fns[i] == fn) {
+      *out = counts[i];
+      return cudaSuccess;
+    }
+  }
+  cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, fn, kThreads, 0);
+  if (err != cudaSuccess) return err;
+  if (used < 32) {
+    fns[used] = fn;
+    counts[used++] = *out;
+  }
+  return cudaSuccess;
+}
+
 struct Plan {
   const void* fn;
   int grid;
@@ -294,8 +320,7 @@ cudaError_t make_plan(const void* send, const void* recv, long long row_bytes,
   } else {
     p->fence = kFenceHand;
     p->fn = pick<kFenceHand>(size);
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, p->fn,
-                                                        kThreads, 0);
+    err = blocks_per_sm(p->fn, &per_sm);
     if (err != cudaSuccess) return err;
     const long long cap = (long long)per_sm * sms;
     if (cap < (zero > 0 ? 2 : 1)) return cudaErrorCooperativeLaunchTooLarge;
@@ -307,52 +332,67 @@ cudaError_t make_plan(const void* send, const void* recv, long long row_bytes,
   return cudaSuccess;
 }
 
-}  // namespace
+// What stays fixed for one plan's tables, from their build on: the
+// tables' device pointers, their counts, the row width and the fence's
+// record and timeout. native/fuse.py's RepBlock mirrors it field for
+// field.
+struct RepBlock {
+  const int* round_ptr;
+  const int* src_row;
+  const int* dst_row;
+  const int* zero_start;
+  const int* zero_ptr;
+  void* sync;
+  unsigned long long timeout_ns;
+  long long zero_rows;
+  long long row_bytes;
+  int n_rounds;
+  int n_zero_runs;
+  int max_round_edges;
+  int device;
+};
 
-// One rep. send: (n, S, row_bytes) bytes; recv: (n, R+1, row_bytes), any
-// contents: every row no edge writes is in the zero runs and is zeroed
-// here. round_ptr: n_rounds+1 int32; src_row, dst_row: E int32 flat rows;
-// zero_start: Z int32 flat rows; zero_ptr: Z+1 int32 prefix row counts;
-// all on the device. max_round_edges: the largest round's edge count.
-// sync: 4 int32 (the hand-rolled fence's counter, zeroed here in the
-// stream, and its error record). stamps: null, or (grid, 2 + 2 *
-// max(n_rounds, 1)) uint64. Returns the launch's cudaError_t (0 on
-// success).
-extern "C" int aggcomm_fused_rep(
-    const void* send, void* recv, const int* round_ptr, const int* src_row,
-    const int* dst_row, const int* zero_start, const int* zero_ptr,
-    int n_rounds, int n_zero_runs, long long zero_rows, long long row_bytes,
-    int max_round_edges, void* sync, unsigned long long timeout_ns,
-    void* stamps, void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
+// The device the calling thread runs on made `device`; cudaSetDevice only
+// when it is another.
+cudaError_t use_device(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return err;
+  return current == device ? cudaSuccess : cudaSetDevice(device);
+}
+
+// One rep of the block's tables from send into recv on stream.
+int launch_rep(const RepBlock& b, const void* send, void* recv, void* stamps,
+               void* stream) {
+  cudaError_t err = use_device(b.device);
   if (err != cudaSuccess) return (int)err;
-  if (n_zero_runs <= 0) zero_rows = 0;
-  if (row_bytes <= 0 || (n_rounds <= 0 && zero_rows <= 0)) return 0;
+  const long long zero_rows = b.n_zero_runs > 0 ? b.zero_rows : 0;
+  if (b.row_bytes <= 0 || (b.n_rounds <= 0 && zero_rows <= 0)) return 0;
   Plan p;
-  err = make_plan(send, recv, row_bytes, max_round_edges, zero_rows, device,
-                  &p);
+  err = make_plan(send, recv, b.row_bytes, b.max_round_edges, zero_rows,
+                  b.device, &p);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p.fence == kFenceHand && n_rounds > 1) {
-    err = cudaMemsetAsync(sync, 0, sizeof(unsigned), st);
+  if (p.fence == kFenceHand && b.n_rounds > 1) {
+    err = cudaMemsetAsync(b.sync, 0, sizeof(unsigned), st);
     if (err != cudaSuccess) return (int)err;
   }
   RepArgs a;
   a.send = static_cast<const unsigned char*>(send);
   a.recv = static_cast<unsigned char*>(recv);
-  a.round_ptr = round_ptr;
-  a.src_row = src_row;
-  a.dst_row = dst_row;
-  a.zero_start = zero_start;
-  a.zero_ptr = zero_ptr;
-  a.n_rounds = n_rounds;
-  a.n_zero_runs = n_zero_runs;
+  a.round_ptr = b.round_ptr;
+  a.src_row = b.src_row;
+  a.dst_row = b.dst_row;
+  a.zero_start = b.zero_start;
+  a.zero_ptr = b.zero_ptr;
+  a.n_rounds = b.n_rounds;
+  a.n_zero_runs = b.n_zero_runs;
   a.zero_rows = (unsigned)zero_rows;
-  a.row_bytes = (unsigned)row_bytes;
+  a.row_bytes = (unsigned)b.row_bytes;
   a.copy_ctas = p.copy_ctas;
-  a.sync.counter = static_cast<unsigned*>(sync);
-  a.sync.error = static_cast<int*>(sync) + 1;
-  a.timeout_ns = timeout_ns;
+  a.sync.counter = static_cast<unsigned*>(b.sync);
+  a.sync.error = static_cast<int*>(b.sync) + 1;
+  a.timeout_ns = b.timeout_ns;
   a.stamps = static_cast<unsigned long long*>(stamps);
   void* args[] = {(void*)&a};
   if (p.fence == kFenceCluster) {
@@ -376,6 +416,48 @@ extern "C" int aggcomm_fused_rep(
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+// One rep. send: (n, S, row_bytes) bytes; recv: (n, R+1, row_bytes), any
+// contents: every row no edge writes is in the zero runs and is zeroed
+// here. round_ptr: n_rounds+1 int32; src_row, dst_row: E int32 flat rows;
+// zero_start: Z int32 flat rows; zero_ptr: Z+1 int32 prefix row counts;
+// all on the device. max_round_edges: the largest round's edge count.
+// sync: 4 int32 (the hand-rolled fence's counter, zeroed here in the
+// stream, and its error record). stamps: null, or (grid, 2 + 2 *
+// max(n_rounds, 1)) uint64. Returns the launch's cudaError_t (0 on
+// success).
+extern "C" int aggcomm_fused_rep(
+    const void* send, void* recv, const int* round_ptr, const int* src_row,
+    const int* dst_row, const int* zero_start, const int* zero_ptr,
+    int n_rounds, int n_zero_runs, long long zero_rows, long long row_bytes,
+    int max_round_edges, void* sync, unsigned long long timeout_ns,
+    void* stamps, void* stream, int device) {
+  RepBlock b;
+  b.round_ptr = round_ptr;
+  b.src_row = src_row;
+  b.dst_row = dst_row;
+  b.zero_start = zero_start;
+  b.zero_ptr = zero_ptr;
+  b.sync = sync;
+  b.timeout_ns = timeout_ns;
+  b.zero_rows = zero_rows;
+  b.row_bytes = row_bytes;
+  b.n_rounds = n_rounds;
+  b.n_zero_runs = n_zero_runs;
+  b.max_round_edges = max_round_edges;
+  b.device = device;
+  return launch_rep(b, send, recv, stamps, stream);
+}
+
+// One rep, as aggcomm_fused_rep, of the tables a RepBlock binds: send and
+// recv as there, no stamps. Returns a cudaError_t.
+extern "C" int aggcomm_fused_rep_bound(const void* block, const void* send,
+                                       void* recv, void* stream) {
+  return launch_rep(*static_cast<const RepBlock*>(block), send, recv,
+                    nullptr, stream);
+}
+
 // What aggcomm_fused_rep would launch for these arguments, into out[4]:
 // grid, copying CTAs, fence (1 hand-rolled, 2 cluster), lane width in
 // bytes. Returns a cudaError_t.
@@ -383,7 +465,7 @@ extern "C" int aggcomm_fused_rep_plan(const void* send, const void* recv,
                                       long long row_bytes,
                                       int max_round_edges, long long zero_rows,
                                       int device, int* out) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   Plan p;
   err = make_plan(send, recv, row_bytes, max_round_edges, zero_rows, device,

@@ -18,8 +18,12 @@ The port of ``tpu_aggcomm/native/fuse.py``, in two halves:
   round, so rounds stay distinct steps. The wrapper :func:`fused_rep`
   takes the plain version (:func:`fused_rep_plain`, a Python loop of
   per-round index copies) for a CPU tensor, launches the kernel for a
-  CUDA tensor into a ``torch.empty`` (or the caller's ``out``) and counts
-  launches in ``fused_rep.launches``.
+  CUDA tensor into a fresh arena (or the caller's ``out``) and counts
+  launches in ``fused_rep.launches``. On the card :func:`plan_tables`
+  binds the launch once (:class:`BoundRep`): a rep of a send in the
+  plan's lane layout is then a key compare, an allocation and one C
+  call; any other CUDA call takes the full argument check, counted in
+  ``fused_rep.full_checks``.
 
 What bounds K2 on an H100: bytes — E*d read and E*d written by the
 copies, plus the never-written rows zeroed; at the README shape (448
@@ -38,7 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -51,7 +55,8 @@ __all__ = ["MAX_FUSED_EDGES", "UnfusableScheduleError", "FusedExportError",
            "cross_check_export", "export_sweep", "render_export_sweep",
            "FusedTables", "plan_tables", "zero_runs_of", "fused_rep",
            "fused_rep_plain", "fused_plan", "check_fence", "build_fused_rep",
-           "FusedFenceError", "runs_of"]
+           "FusedFenceError", "runs_of", "RepBlock", "BoundRep",
+           "bind_rep"]
 
 #: Hard ceiling on the per-kernel copy count: each edge unrolls to one
 #: DMA start + wait pair in the Mosaic instruction stream, so a flagship
@@ -378,6 +383,9 @@ class FusedTables:
     zero_start: torch.Tensor
     zero_ptr: torch.Tensor
     sync: torch.Tensor          # the hand-rolled fence's counter + error
+    #: K2's launch bound to these tables on their card (None on the CPU)
+    bound: "BoundRep | None" = field(default=None, compare=False,
+                                     repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -406,7 +414,8 @@ def runs_of(mask: np.ndarray) -> list:
 
 
 def plan_tables(plan: FusePlan, device) -> FusedTables:
-    """Flatten ``plan.rounds`` into the kernel's int32 tables."""
+    """Flatten ``plan.rounds`` into the kernel's int32 tables; on a CUDA
+    device with K2's launch bound to them (:func:`bind_rep`)."""
     ptr = [0]
     cols: list = [[], [], [], []]
     for _r, edges in plan.rounds:
@@ -422,7 +431,7 @@ def plan_tables(plan: FusePlan, device) -> FusedTables:
     n_recv_rows = plan.n_recv_slots + 1
     runs = zero_runs_of(plan.nprocs, n_recv_rows, cols[2], cols[3])
     lens = [b - a for a, b in runs]
-    return FusedTables(
+    tabs = FusedTables(
         nprocs=plan.nprocs, n_send_slots=plan.n_send_slots,
         n_recv_rows=n_recv_rows, round_ptr=tuple(ptr),
         max_round_edges=int(counts.max()) if len(counts) else 0,
@@ -435,6 +444,9 @@ def plan_tables(plan: FusePlan, device) -> FusedTables:
         zero_rows=sum(lens), zero_start=t([a for a, _b in runs]),
         zero_ptr=t(np.concatenate([[0], np.cumsum(lens)]).tolist()),
         sync=torch.zeros(4, dtype=torch.int32, device=device))
+    if tabs.device.type != "cuda":
+        return tabs
+    return replace(tabs, bound=bind_rep(tabs, plan.data_size))
 
 
 def fused_rep_plain(send: torch.Tensor, tabs: FusedTables) -> torch.Tensor:
@@ -485,7 +497,10 @@ def _c_lib():
     plan = lib.aggcomm_fused_rep_plan
     plan.argtypes = [p, p, ll, i, ll, i, ctypes.POINTER(i)]
     plan.restype = i
-    return fn, plan
+    bound = lib.aggcomm_fused_rep_bound
+    bound.argtypes = [p, p, p, p]
+    bound.restype = i
+    return fn, plan, bound
 
 
 def _dev_index(t: torch.Tensor) -> int:
@@ -542,6 +557,78 @@ def check_fence(tabs: FusedTables) -> None:
             f"complete")
 
 
+class RepBlock(ctypes.Structure):
+    """``RepBlock`` of ``csrc/fused_rep.cu``, field for field: what K2's
+    launch reads that one plan's tables fix."""
+
+    _fields_ = [("round_ptr", ctypes.c_void_p), ("src_row", ctypes.c_void_p),
+                ("dst_row", ctypes.c_void_p), ("zero_start", ctypes.c_void_p),
+                ("zero_ptr", ctypes.c_void_p), ("sync", ctypes.c_void_p),
+                ("timeout_ns", ctypes.c_ulonglong),
+                ("zero_rows", ctypes.c_longlong),
+                ("row_bytes", ctypes.c_longlong), ("n_rounds", ctypes.c_int),
+                ("n_zero_runs", ctypes.c_int),
+                ("max_round_edges", ctypes.c_int), ("device", ctypes.c_int)]
+
+
+@dataclass(frozen=True)
+class BoundRep:
+    """K2's launch bound to one plan's tables on their card, for send
+    arenas in the plan's lane layout (``backends/lanes.lane_layout``): a
+    send of ``send_shape`` and ``dtype``, contiguous and on the tables'
+    card, is one launch of :attr:`block` into an arena like
+    :attr:`arena` (a one-element template viewed at the receive shape)."""
+
+    block: RepBlock
+    ref: object                    # ctypes.byref(block), for the C entry
+    send_shape: torch.Size
+    dtype: torch.dtype
+    device_index: int
+    arena: torch.Tensor
+    launch: object                 # the C entry aggcomm_fused_rep_bound
+    stream: object                 # device index -> the current raw stream
+
+    def takes(self, send: torch.Tensor) -> bool:
+        """Whether ``send`` is what the tables were bound for."""
+        return (send.shape == self.send_shape and send.dtype is self.dtype
+                and send.get_device() == self.device_index
+                and send.is_contiguous())
+
+    def issue(self, send: torch.Tensor, out: torch.Tensor) -> None:
+        """One launch of K2 from ``send`` into ``out`` on PyTorch's
+        current stream; counted in ``fused_rep.launches``."""
+        rc = self.launch(self.ref, send.data_ptr(), out.data_ptr(),
+                         self.stream(self.device_index))
+        if rc != 0:
+            raise RuntimeError(
+                f"fused_rep kernel launch failed: cudaError {rc}")
+        fused_rep.launches += 1
+
+
+def bind_rep(tabs: FusedTables, data_size: int) -> BoundRep:
+    """K2's launch for CUDA ``tabs`` and slabs of ``data_size`` bytes,
+    bound once: the packed arguments, the accepted send, the receive
+    arena's template, the C entry and the stream's reader."""
+    from tpu_aggcomm_torch.backends.lanes import lane_layout
+    _, dtype, w = lane_layout(data_size)
+    index = _dev_index(tabs.src)
+    # what _launch passes besides the arenas, the stamps and the stream
+    block = RepBlock(
+        tabs.round_ptr_dev.data_ptr(), tabs.src_row.data_ptr(),
+        tabs.dst_row.data_ptr(), tabs.zero_start.data_ptr(),
+        tabs.zero_ptr.data_ptr(), tabs.sync.data_ptr(), int(TIMEOUT_S * 1e9),
+        tabs.zero_rows, w * dtype.itemsize, tabs.n_rounds,
+        len(tabs.zero_runs), tabs.max_round_edges, index)
+    arena = torch.empty((), dtype=dtype, device=tabs.device).expand(
+        tabs.nprocs, tabs.n_recv_rows, w)
+    return BoundRep(block=block, ref=ctypes.byref(block),
+                    send_shape=torch.Size((tabs.nprocs, tabs.n_send_slots,
+                                           w)),
+                    dtype=dtype, device_index=index, arena=arena,
+                    launch=_c_lib()[2],
+                    stream=torch._C._cuda_getCurrentRawStream)
+
+
 def fused_rep(send: torch.Tensor, tabs: FusedTables,
               out: torch.Tensor | None = None, *,
               stamps: torch.Tensor | None = None) -> torch.Tensor:
@@ -551,13 +638,33 @@ def fused_rep(send: torch.Tensor, tabs: FusedTables,
     the never-written rows zeroed inside it; ``stamps`` (int64, ``grid *
     (2 + 2 * max(R, 1))``, diagnostic calls only) receives each CTA's
     %globaltimer stamps. The call stays asynchronous: :func:`check_fence`
-    raises a fence timeout after the device has run it. While a trace
-    recorder is on, the call is a ``rep`` span holding ``rep.arena`` (the
-    receive arena's allocation) and ``rep.issue`` (the launch; on the CPU
-    the plain version's copies)."""
+    raises a fence timeout after the device has run it.
+
+    A send the tables were bound for (:class:`BoundRep`), with neither
+    ``out`` nor ``stamps``, takes the bound launch: a key compare, an
+    allocation and one call. Every other CUDA call takes the full
+    argument check and is counted in ``fused_rep.full_checks``. While a
+    trace recorder is on, the call is a ``rep`` span (its args:
+    ``full_checks`` after the call) holding ``rep.arena`` (the receive
+    arena's allocation) and ``rep.issue`` (the launch; on the CPU the
+    plain version's copies)."""
     rec = trace.current()
     if rec is not None:
         return _traced_fused_rep(rec, send, tabs, out, stamps)
+    b = tabs.bound
+    # BoundRep.takes and .issue, inlined: a call costs a few hundred ns
+    if (out is None and stamps is None and b is not None
+            and send.shape == b.send_shape and send.dtype is b.dtype
+            and send.get_device() == b.device_index
+            and send.is_contiguous()):
+        out = torch.empty_like(b.arena)
+        rc = b.launch(b.ref, send.data_ptr(), out.data_ptr(),
+                      b.stream(b.device_index))
+        if rc != 0:
+            raise RuntimeError(
+                f"fused_rep kernel launch failed: cudaError {rc}")
+        fused_rep.launches += 1
+        return out
     _check_args(send, tabs, out)
     if send.device.type == "cpu":
         if out is None:
@@ -573,30 +680,42 @@ def fused_rep(send: torch.Tensor, tabs: FusedTables,
 def _traced_fused_rep(rec, send: torch.Tensor, tabs: FusedTables, out,
                       stamps) -> torch.Tensor:
     """:func:`fused_rep` inside its spans."""
-    with rec.span("rep"):
-        _check_args(send, tabs, out)
-        cpu = send.device.type == "cpu"
+    with rec.span("rep") as span:
+        b = tabs.bound
+        bound = (out is None and stamps is None and b is not None
+                 and b.takes(send))
+        if not bound:
+            _check_args(send, tabs, out)
+        cpu = not bound and send.device.type == "cpu"
         fresh = out is None
         if fresh:
             with rec.span("rep.arena"):
                 shape = (tabs.nprocs, tabs.n_recv_rows, send.shape[2])
-                out = (send.new_zeros(shape) if cpu else
-                       torch.empty(shape, dtype=send.dtype,
-                                   device=send.device))
+                if bound:
+                    out = torch.empty_like(b.arena)
+                elif cpu:
+                    out = send.new_zeros(shape)
+                else:
+                    out = torch.empty(shape, dtype=send.dtype,
+                                      device=send.device)
         with rec.span("rep.issue"):
-            if not cpu:
+            if bound:
+                b.issue(send, out)
+            elif not cpu:
                 _launch(send, tabs, out, stamps)
             elif fresh:
                 _plain_rounds(send, tabs, out)
             else:
                 _fused_rep_into(send, tabs, out)
+        span.note(full_checks=fused_rep.full_checks)
     return out
 
 
 def _launch(send: torch.Tensor, tabs: FusedTables, out: torch.Tensor,
             stamps) -> None:
-    """One launch of K2 on the current stream; counted in
-    ``fused_rep.launches``."""
+    """One launch of K2 on the current stream after the full argument
+    check; counted in ``fused_rep.launches`` and
+    ``fused_rep.full_checks``."""
     dev = _dev_index(send)
     rc = _c_lib()[0](
         send.data_ptr(), out.data_ptr(), tabs.round_ptr_dev.data_ptr(),
@@ -610,9 +729,11 @@ def _launch(send: torch.Tensor, tabs: FusedTables, out: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"fused_rep kernel launch failed: cudaError {rc}")
     fused_rep.launches += 1
+    fused_rep.full_checks += 1
 
 
 fused_rep.launches = 0
+fused_rep.full_checks = 0
 
 
 def build_fused_rep(plan: FusePlan, *, device):

@@ -139,6 +139,11 @@ class _HostSpan:
             "start_ns": self._t0, "end_ns": t1})
         return False
 
+    def note(self, **args) -> None:
+        """Add ``args`` to the span's arguments: what is known only
+        inside it."""
+        self._args.update(args)
+
 
 class _OpenSpans(threading.local):
     """The ids of the spans open on each thread, innermost last."""
