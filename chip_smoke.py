@@ -3653,9 +3653,7 @@ def phase_deliver_rows(dev) -> dict:
 
     from tpu_aggcomm_torch.backends.deliver_rows import (arena_launcher,
                                                          deliver_rows,
-                                                         deliver_rows_plain,
-                                                         unwritten_runs,
-                                                         zero_runs)
+                                                         deliver_rows_plain)
     from tpu_aggcomm_torch.backends.torch_shard import TorchShardBackend
     from tpu_aggcomm_torch.core.methods import compile_method
     from tpu_aggcomm_torch.core.pattern import AggregatorPattern
@@ -3687,9 +3685,8 @@ def phase_deliver_rows(dev) -> dict:
 
     built, build_s = build(999_999_999)
     F, Fs = built.F, built.Fs
-    (_r, tab, nbar), = built.rounds
-    tabs = tab.rows
-    zero = zero_runs(unwritten_runs(F, [(tabs.dst, nbar)]), dev)
+    (_r, tab, _nbar), = built.rounds
+    tabs, zero = tab.rows, built.zero
     out = {}
     for d in (2048, 256):
         w = d // 4
@@ -3733,8 +3730,7 @@ def phase_deliver_rows(dev) -> dict:
 
     built, build64_s = build(64)
     F, R, d = built.F, len(built.rounds), 2048
-    zero = zero_runs(unwritten_runs(
-        F, [(t.rows.dst, nb) for (_r, t, nb) in built.rounds]), dev)
+    zero = built.zero
     send = random_send(built.Fs, d // 4)
     recv = torch.empty((F, d // 4), dtype=torch.int32, device=dev)
     issue = arena_launcher(send, recv)

@@ -16,7 +16,6 @@ import numpy as np
 import pytest
 
 from tpu_aggcomm_torch.backends import torch_shard
-from tpu_aggcomm_torch.backends.deliver_rows import row_tables, unwritten_runs
 from tpu_aggcomm_torch.backends.torch_shard import TorchShardBackend
 from tpu_aggcomm_torch.core.methods import compile_method
 from tpu_aggcomm_torch.core.pattern import AggregatorPattern
@@ -122,16 +121,11 @@ def test_shape_key_and_edges_never_read_programs(m, c):
 
 
 def _host_tables(backend, s):
-    """``_compiled``'s build of ``s`` on the CPU and the host tables it
-    came from, with the row-delivery tables and zero runs the card's
-    build makes of them."""
+    """``_compiled``'s build of ``s`` on the CPU (its row-delivery tables
+    and zero runs, as on the card) and the host tables it came from."""
     built = backend._compiled(s)
     _, host = backend._mesh_layout(s)
-    rows = [row_tables(pk[0].reshape(-1), sc[0].reshape(-1), F=built.F,
-                       Fs=built.Fs, device="cpu") for (_r, pk, sc, _b) in host]
-    zero = unwritten_runs(built.F, [(rt.dst, nbar) for rt, (*_x, nbar)
-                                    in zip(rows, host)])
-    return built, host, rows, zero
+    return built, host
 
 
 @pytest.mark.parametrize("m", (1, 2))
@@ -146,7 +140,7 @@ def test_torch_shard_build_reads_no_program_and_equals_the_walk(m, n, a, c):
 
 
 def _assert_same_build(got, want):
-    (gb, gh, grows, gzero), (wb, wh, wrows, wzero) = got, want
+    (gb, gh), (wb, wh) = got, want
     assert (gb.F, gb.Fs, gb.ndev, gb.bsz) == (wb.F, wb.Fs, wb.ndev, wb.bsz)
     for name in ("counts", "recv_base", "send_base"):
         np.testing.assert_array_equal(getattr(gb, name), getattr(wb, name))
@@ -156,12 +150,10 @@ def _assert_same_build(got, want):
         np.testing.assert_array_equal(gpk, wpk)
         np.testing.assert_array_equal(gsc, wsc)
     for (gr, gtab, gnb), (wr, wtab, wnb) in zip(gb.rounds, wb.rounds):
-        assert (gr, gnb) == (wr, wnb)
-        assert gtab.pk.equal(wtab.pk) and gtab.sc.equal(wtab.sc)
-    for g, w in zip(grows, wrows):
-        np.testing.assert_array_equal(g.src, w.src)
-        np.testing.assert_array_equal(g.dst, w.dst)
-    assert gzero == wzero
+        assert (gr, gnb, gtab.edges) == (wr, wnb, wtab.edges)
+        np.testing.assert_array_equal(gtab.rows.src, wtab.rows.src)
+        np.testing.assert_array_equal(gtab.rows.dst, wtab.rows.dst)
+    assert gb.zero.runs == wb.zero.runs
 
 
 @pytest.mark.slow

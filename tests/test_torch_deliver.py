@@ -3,10 +3,11 @@ the CPU: its round tables, the rows a rep leaves to the first launch's
 zeroing, and its plain version.
 
 The kernel itself (``csrc/deliver_rows.cu``) runs only on the card
-(``tests/test_torch_gpu.py``). Here its tables and zero runs drive the
-plain version over a receive arena filled with 0xFF, as ``torch.empty``
-may hand the card's rep, and every byte must equal ``torch_shard``'s CPU
-rep, which zeroes its arena and runs the gather and ``index_put_``.
+(``tests/test_torch_gpu.py``). ``torch_shard``'s one-device rep is the
+same program on both devices: here its tables and zero runs drive the
+plain version over a receive arena that ``torch.empty`` hands back
+filled (:mod:`torch_fill`), and every byte must equal a gather and
+``index_put_`` of the reference's host block tables into a zeroed arena.
 """
 
 import dataclasses
@@ -15,7 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+from torch_fill import filled_empty  # noqa: F401
+
 from tpu_aggcomm_torch.backends import deliver_rows as dr
+from tpu_aggcomm_torch.backends import torch_shard
 from tpu_aggcomm_torch.backends.torch_shard import (TorchShardBackend,
                                                     schedule_edges)
 from tpu_aggcomm_torch.core.methods import compile_method
@@ -142,26 +146,17 @@ def test_wrapper_on_the_cpu_is_the_plain_version_and_checks():
         dr.deliver_rows(send[:4], recv, t)
 
 
-def _kernel_rep(b, s, send, upto):
-    """The card's rep of ``b``'s CPU build, in plain torch: the arena
-    unfilled (0xFF), each round through the kernel's tables, the first
-    with the zero runs, then the round's barrier tokens."""
-    built = b._compiled(s)
+def _gather_rep(b, s, send, upto):
+    """The reference's single-device rep of ``s`` on ``b``'s host block
+    tables, in the scan form where it applies: a zeroed arena, each
+    round's gather (pads read send row 0) and ``index_put_`` (pads land
+    in the trash row), then its barrier tokens."""
+    built, host = b._mesh_layout(s)
     F = built.F
-    rounds = []
-    for (_r, tab, nbar) in built.rounds[:upto]:
-        sc = tab.sc.numpy()
-        pk = np.where(sc == F - 1, -1, tab.pk.numpy())
-        rounds.append((dr.row_tables(pk, sc, F=F, Fs=built.Fs,
-                                     device="cpu"), nbar))
-    zero = dr.zero_runs(dr.unwritten_runs(
-        F, [(t.dst, nbar) for t, nbar in rounds]), "cpu")
-    recv = torch.full((F, send.shape[1]), -1, dtype=send.dtype)
-    if not rounds:
-        dr.deliver_rows(send, recv, None, zero)
-    for t, nbar in rounds:
-        dr.deliver_rows(send, recv, t, zero)
-        zero = None
+    recv = torch.zeros((F, send.shape[1]), dtype=send.dtype)
+    for (_r, pk, sc, nbar) in torch_shard._scan_form(host, F)[:upto]:
+        recv[torch.from_numpy(sc.reshape(-1).astype(np.int64))] = send[
+            torch.from_numpy(np.maximum(pk, 0).reshape(-1).astype(np.int64))]
         for _ in range(nbar):
             recv[F - 1, 0] = recv[0, 0]
     return recv
@@ -178,9 +173,12 @@ def _kernel_rep(b, s, send, upto):
     (1, 8, 3, 64, 2, 0, "deadlink:5>3"),        # unrepaired dead link
 ])
 def test_kernel_tables_give_the_cpu_reps_bytes(method, n, a, d, c, bt,
-                                                fault):
-    """For every prefix of the rounds: the kernel's tables and zero runs
-    over an unfilled arena give the CPU rep's bytes, trash row included."""
+                                                fault, filled_empty):
+    """For every prefix of the rounds: the one-device rep on the CPU (the
+    kernel's tables and zero runs through its plain version, over an
+    arena ``torch.empty`` hands back filled) gives the bytes of the
+    reference's gather and ``index_put_`` into a zeroed arena, trash row
+    included; the CPU launches no kernel."""
     s = compile_method(method, AggregatorPattern(n, a, data_size=d,
                                                  comm_size=c),
                        barrier_type=bt)
@@ -189,9 +187,11 @@ def test_kernel_tables_give_the_cpu_reps_bytes(method, n, a, d, c, bt,
     b = TorchShardBackend("cpu")
     built = b._compiled(s)
     send = b._send(s.pattern, 3, built)
+    launches = dr.deliver_rows.launches
     for upto in range(len(built.rounds) + 1):
-        want = built.rep(send, upto)
-        assert torch.equal(_kernel_rep(b, s, send, upto), want), upto
+        want = _gather_rep(b, s, send, upto)
+        assert torch.equal(built.rep(send, upto), want), upto
+    assert dr.deliver_rows.launches == launches
 
 
 @pytest.mark.parametrize("method,n,a,d,c,bt,fault", [
@@ -206,23 +206,19 @@ def test_roofline_prices_the_kernels_rounds(method, n, a, d, c, bt, fault):
     every edge's row read and written once, nothing in between, the rows
     of the first launch's zero runs, two int32 entries a table row and
     the zero runs' tables, one pad entry a padded round; fewer bytes than
-    the CPU's zero fill, gather and ``index_put_``."""
+    a zero fill of the arena and a gather and ``index_put_`` of the same
+    entries."""
     from tpu_aggcomm_torch.harness import roofline
     s = compile_method(method, AggregatorPattern(n, a, data_size=d,
                                                  comm_size=c),
                        barrier_type=bt)
     if fault:
         s = dataclasses.replace(s, fault=fault)
-    b = TorchShardBackend("cpu")
-    built = b._compiled(s)
+    built = TorchShardBackend("cpu")._compiled(s)
     F = built.F
-    tabs = []
-    for (_r, tab, nbar) in built.rounds:
-        sc = tab.sc.numpy()
-        tabs.append((dr.row_tables(np.where(sc == F - 1, -1, tab.pk.numpy()),
-                                   sc, F=F, Fs=built.Fs, device="cpu"),
-                     nbar))
+    tabs = [(tab.rows, nbar) for (_r, tab, nbar) in built.rounds]
     runs = dr.unwritten_runs(F, [(t.dst, nbar) for t, nbar in tabs])
+    assert list(built.zero.runs) == runs
     entries = sum(t.n_rows for t, _nb in tabs)
     E = len(schedule_edges(s))
     pads = entries - E
@@ -234,7 +230,8 @@ def test_roofline_prices_the_kernels_rounds(method, n, a, d, c, bt, fault):
     assert rb.index_read == 8 * entries + (4 * (2 * len(runs) + 1)
                                            if runs else 0)
     assert (rb.rounds, rb.devices) == (len(tabs), 1)
-    assert rb.total() < roofline._shard_rep_bytes(s, 1).total()
+    zero_fill_gather_put = F * d + 4 * entries * d + 2 * 8 * entries
+    assert rb.total() < zero_fill_gather_put
 
 
 def test_roofline_prices_the_kernel_on_one_device_only():

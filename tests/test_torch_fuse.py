@@ -1,10 +1,12 @@
 """Kernel K2's plain version against the fused Pallas kernel in interpret
 mode, and the cuda_fused backend's named refusals.
 
-``CudaFusedBackend(device="cpu")`` runs the plain version of K2 (a Python
-loop over the plan's rounds doing ``recv[dst, ds] = send[src, ss]``); its
-whole ``(n, R+1, w)`` recv arena, trash row included (left at zero: the
-fused lowering writes no barrier tokens), must equal
+``CudaFusedBackend(device="cpu")`` runs K2's contract in plain torch: a
+``torch.empty`` arena, its zero runs zeroed, then a Python loop over the
+plan's rounds doing ``recv[dst, ds] = send[src, ss]``. Under
+:mod:`torch_fill` that arena comes back filled, and its whole ``(n, R+1,
+w)`` recv arena, trash row included (left at zero: the fused lowering
+writes no barrier tokens), must equal
 ``PallasFusedBackend(interpret=True)``'s byte for byte, for the 16
 fusable dispatched methods.
 """
@@ -21,6 +23,8 @@ from tpu_aggcomm.backends.pallas_fused import PallasFusedBackend  # noqa: E402
 from tpu_aggcomm.backends.jax_sim import dense_send_lanes as ref_send  # noqa: E402
 from tpu_aggcomm.core.methods import compile_method as ref_compile  # noqa: E402
 from tpu_aggcomm.core.pattern import AggregatorPattern as RefPattern  # noqa: E402
+
+from torch_fill import filled_empty  # noqa: E402,F401
 
 from tpu_aggcomm_torch.backends.cuda_fused import (CudaFusedBackend,  # noqa: E402
                                                    FusedBackendError)
@@ -42,7 +46,7 @@ def _pair(m, n=8, a=3, d=32, c=3):
 
 
 @pytest.mark.parametrize("method", FUSABLE)
-def test_plain_fused_rep_matches_pallas_interpret(method):
+def test_plain_fused_rep_matches_pallas_interpret(method, filled_empty):
     rs, s = _pair(method)
     send = ref_send(rs.pattern, 0)
     want = np.asarray(jax.jit(
@@ -58,7 +62,7 @@ def test_plain_fused_rep_matches_pallas_interpret(method):
     assert any(r is not None for r in recv)
 
 
-def test_plain_fused_rep_byte_lanes():
+def test_plain_fused_rep_byte_lanes(filled_empty):
     rs, s = _pair(1, d=30)
     send = ref_send(rs.pattern, 0)
     want = np.asarray(jax.jit(
@@ -196,9 +200,10 @@ def test_cell_written_in_two_rounds_keeps_the_later_row():
 
 
 @pytest.mark.parametrize("method", FUSABLE + ["two-writer"])
-def test_fused_rep_into_poisoned_out_equals_plain(method):
+def test_fused_rep_into_poisoned_out_equals_plain(method, filled_empty):
     """With ``out`` the CPU path runs the kernel's contract (zero runs,
-    then rounds) over whatever ``out`` held."""
+    then rounds) over whatever ``out`` held; without, over the arena
+    ``torch.empty`` hands back filled."""
     if method == "two-writer":
         plan = _two_writer_plans()[0]
         send = torch.arange(2 * 2 * 4, dtype=torch.int32).reshape(2, 2, 4)
@@ -212,6 +217,7 @@ def test_fused_rep_into_poisoned_out_equals_plain(method):
     got = fuse.fused_rep(send, tabs, out=out)
     assert got is out
     assert torch.equal(got, fuse.fused_rep_plain(send, tabs))
+    assert torch.equal(fuse.fused_rep(send, tabs), got)
 
 
 def test_fused_rep_refuses_a_mismatched_out():

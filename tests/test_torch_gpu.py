@@ -1289,10 +1289,11 @@ def _shard_builds(s, cuda):
 def test_deliver_rows_rep_equals_the_cpu_at_every_prefix(cuda, method, n, a,
                                                          d, c, bt):
     """Every prefix of the rounds (and the whole rep): the card's flat
-    receive arena, trash row included, equals the CPU's gather and
-    index_put_ into a zeroed arena; one launch a round, none of ATen's
-    index kernels. Rows of 2048 and 256 bytes take 16-byte lanes, of 100
-    bytes 4-byte lanes, of 6 bytes 1-byte lanes."""
+    receive arena, trash row included, equals the CPU's rep (the same
+    tables and zero runs through the kernel's plain version); one launch
+    a round, none of ATen's index kernels. Rows of 2048 and 256 bytes
+    take 16-byte lanes, of 100 bytes 4-byte lanes, of 6 bytes 1-byte
+    lanes."""
     from tpu_aggcomm_torch.backends.deliver_rows import deliver_rows
     s = compile_method(method, AggregatorPattern(n, a, data_size=d,
                                                  comm_size=c),
@@ -1361,8 +1362,8 @@ def test_deliver_rows_graph_chain_equals_the_eager_chain(cuda, iters):
 
 def test_deliver_rows_arena_past_four_gigabytes(cuda):
     """n=4096 a=256 d=4096: 4.29 GB arenas, byte offsets past 2^32. The
-    kernel's arena equals ATen's gather and index_put_ into a zeroed
-    arena on the card, trash row included."""
+    kernel's arena equals ATen's gather and index_put_ of the host block
+    tables into a zeroed arena on the card, trash row included."""
     s = compile_method(1, AggregatorPattern(4096, 256, data_size=4096,
                                             comm_size=999_999_999))
     from tpu_aggcomm_torch.backends.torch_shard import TorchShardBackend
@@ -1370,9 +1371,10 @@ def test_deliver_rows_arena_past_four_gigabytes(cuda):
     built = b._compiled(s)
     send = b._send(s.pattern, 1, built)
     assert built.F * send.shape[1] * 4 > 2 ** 32
-    (_r, tab, _nbar), = built.rounds
+    (_r, pk, sc, _nbar), = b._mesh_layout(s)[1]
     _poison(built.F * send.shape[1] * 4, cuda)
     got = built.rep(send)
     want = torch.zeros_like(got)
-    want[tab.sc] = send[tab.pk]
+    want[torch.as_tensor(sc.reshape(-1), device=cuda).long()] = send[
+        torch.as_tensor(np.maximum(pk, 0).reshape(-1), device=cuda).long()]
     assert torch.equal(got, want)

@@ -13,12 +13,13 @@ and the runner's soft deadlines priced off it, on the CPU.
 - the named departures: H100 constants, no fence copy (``refence_walks``
   0), ``jax_sim`` and ``jax_shard`` unknown (the port's lowerings are
   ``torch_sim`` and ``torch_shard``);
-- ``torch_shard``'s row: the bytes of its group program at one device
-  are the aten-counted bytes of the sharded tier's CPU program (rep and
-  chain step), counted as ``torch_sim``'s are; its terms over ndev
-  devices follow the reference's ``jax_shard`` edge and padding counts;
-  at one device the row prices the card's row-delivery rounds
-  (``tests/test_torch_deliver.py``), with the reference's edges;
+- ``torch_shard``'s row: at one device it prices the row delivery, the
+  one-device rep on every device; on the CPU that rep is the kernel's
+  plain version, whose aten-counted bytes (rep and chain step, counted
+  as ``torch_sim``'s are) are the row's plus the plain version's own
+  surplus, term by term (``tests/test_torch_deliver.py`` prices the
+  kernel's terms); its terms over ndev devices follow the reference's
+  ``jax_shard`` edge and padding counts;
 - ``derive_deadline`` and ``soft_deadline_check`` equal the reference's,
   ``schedule_floor_s`` prices torch_sim only, and a dispatch over its
   (forced) deadline is one ``deadline`` record and a stderr line, the
@@ -140,6 +141,22 @@ def _shard_send(s):
     return b._send(s.pattern, 0, b._compiled(s))
 
 
+def _plain_surplus(built, d: int) -> int:
+    """Bytes the row delivery's plain version moves beyond the kernel's
+    row (``rep_bytes(..., lowering="torch_shard")``) over ``built``'s
+    rounds: the gathered rows' temporary, written and read; the two int32
+    tables of each entry read, written as int64 and read as indices, in
+    place of the kernel's two int32 reads; less the zero runs' tables,
+    which only the kernel reads (the plain version zeroes from the host
+    runs)."""
+    entries = sum(tab.rows.n_rows for (_r, tab, _nb) in built.rounds)
+    temporary = 2 * entries * d
+    widened_tables = 2 * (4 + 8 + 8) * entries - 2 * 4 * entries
+    runs = len(built.zero.runs)
+    zero_tables = 4 * (2 * runs + 1) if runs else 0
+    return temporary + widened_tables - zero_tables
+
+
 @pytest.mark.parametrize("m,d", CASES)
 def test_reference_terms_equal_the_reference_jax_sim_terms(m, d):
     s, rs = _pair(m, d)
@@ -229,13 +246,14 @@ def test_chain_overhead_is_the_chain_steps(m, d):
 
 @pytest.mark.parametrize("m,d", CASES)
 def test_torch_shard_row_is_the_programs_bytes(m, d):
-    """The sharded row's group program at one device is torch_shard's
-    CPU program: every byte its rep moves, counted by aten operation as
-    torch_sim's are (the scan-padded, barrier and dense rounds included),
-    and the chain step's XOR of the flat send buffer and token read. The
-    row itself prices the card's row delivery, with the same edges and
-    rounds and fewer bytes. TAM runs the blocked engine, which the row
-    does not model (the TAM line is torch_sim's)."""
+    """The sharded row at one device prices torch_shard's one-device rep,
+    the row delivery. On the CPU that rep is the kernel's plain version:
+    every byte it moves, counted by aten operation as torch_sim's are
+    (the scan-padded, barrier and dense rounds included), is the row's
+    bytes plus the plain version's own surplus; the chain step's XOR of
+    the flat send buffer and token read are the chain's row. The row's
+    edges and rounds are the reference's. TAM runs the blocked engine,
+    which the row does not model (the TAM line is torch_sim's)."""
     if METHODS[m].tam:
         with pytest.raises(ValueError, match="tam_rep_bytes"):
             roofline.rep_bytes(_pair(m, d)[0], lowering="torch_shard")
@@ -243,12 +261,8 @@ def test_torch_shard_row_is_the_programs_bytes(m, d):
     s, rs = _pair(m, d, n=32, c=1)
     built = TorchShardBackend("cpu")._compiled(s)
     send = _shard_send(s)
-    plain = roofline._shard_rep_bytes(s, 1)
-    assert _counted(built.rep, send) == plain.total()
     rb = roofline.rep_bytes(s, lowering="torch_shard")
-    assert (rb.gather_read, rb.scatter_write, rb.edges, rb.rounds) == \
-        (plain.gather_read, plain.scatter_write, plain.edges, plain.rounds)
-    assert rb.total() < plain.total()
+    assert _counted(built.rep, send) == rb.total() + _plain_surplus(built, d)
     recv = built.rep(send)
     from tpu_aggcomm_torch.parallel import group_sum
 
@@ -326,9 +340,9 @@ def test_h100_constants_and_named_departures():
         roofline.rep_bytes(s, lowering="jax_shard")
     with pytest.raises(ValueError, match="unknown lowering 'jax_shard'"):
         roofline.chain_overhead_bytes(s, lowering="jax_shard")
-    assert roofline._shard_rep_bytes(s, 1).total() == \
-        _counted(TorchShardBackend("cpu")._compiled(s).rep,
-                 _shard_send(s)) > 0
+    built = TorchShardBackend("cpu")._compiled(s)
+    assert roofline.rep_bytes(s, lowering="torch_shard").total() + \
+        _plain_surplus(built, 64) == _counted(built.rep, _shard_send(s)) > 0
     with pytest.raises(ValueError, match="unknown lowering 'jax_sim'"):
         roofline.rep_bytes(s, lowering="jax_sim")
     with pytest.raises(ValueError, match="single-device"):

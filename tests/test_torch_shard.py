@@ -41,6 +41,7 @@ from tpu_aggcomm_torch.tam import engine  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from torch_dist_pool import REPO, pool_factory  # noqa: E402
+from torch_fill import filled_empty  # noqa: E402,F401
 
 NON_TAM = [m for m in method_ids(include_dead=True) if not METHODS[m].tam]
 
@@ -129,9 +130,10 @@ def test_shard_matches_reference(method, W, pool):
 
 
 @pytest.mark.parametrize("method", [1, 8, 13, 17])
-def test_single_process_is_the_single_device_mesh(method):
+def test_single_process_is_the_single_device_mesh(method, filled_empty):
     """W=1, in this process: the reference's single-device path (no
-    collective, no mask, pads into the trash row) byte for byte."""
+    collective, no mask, pads into the trash row) byte for byte, with the
+    receive arena ``torch.empty`` hands back filled."""
     sp = dict(method=method, n=12, a=5, d=32, c=4, p=2,
               b=2 if method == 13 else 0)
     b = TorchShardBackend("cpu")

@@ -631,7 +631,8 @@ class CudaDmaBackend:
             # TAM's 3-hop relay and the dense m=5/8 have no permutation
             # steps: routed by method to the rank-axis lowering on the
             # same device (the reference routes TAM to jax_sim and the
-            # collectives to jax_ici, which is not ported)
+            # collectives to jax_ici, whose port torch_ici holds one rank
+            # on a card with no process group)
             if self._sim_delegate is None:
                 self._sim_delegate = TorchSimBackend(device=self.device)
             sb = self._sim_delegate

@@ -20,12 +20,13 @@ write, so the rep allocates its arena with ``torch.empty``.
   as well where a barrier token reads it before a round writes it.
   Pads write the trash row; a barrier token, which writes only its lane
   0, does not.
-- :func:`deliver_rows`: the wrapper. It launches the kernel on the
-  current stream for CUDA tensors, counting launches in
-  ``deliver_rows.launches``, and takes :func:`deliver_rows_plain` for
-  CPU tensors. A round's ctypes arguments are built once, with its
-  tables, and :func:`arena_launcher` reads a rep's two arenas and the
-  stream once, so each of the rep's rounds is one ctypes call.
+- :func:`arena_launcher`: a rep's round issuer, and :func:`deliver_rows`
+  one round through it. For CUDA tensors it launches the kernel on the
+  current stream, counting launches in ``deliver_rows.launches``; a
+  round's ctypes arguments are built once, with its tables, and the
+  issuer reads the rep's two arenas and the stream once, so each of the
+  rep's rounds is one ctypes call. CPU tensors take
+  :func:`deliver_rows_plain`, the kernel's contract in plain torch.
 """
 
 from __future__ import annotations
@@ -155,7 +156,7 @@ def deliver_rows_plain(send: torch.Tensor, recv: torch.Tensor,
     """The plain version: the zero runs zeroed, then
     ``recv[dst] = send[src]``. Updates ``recv`` in place and returns it."""
     for a, b in (zero or NO_ZERO).runs:
-        recv[a:b] = 0
+        recv[a:b].zero_()
     if tabs is not None and tabs.n_rows:
         recv[tabs.dst_dev.long()] = send[tabs.src_dev.long()]
     return recv
@@ -214,29 +215,33 @@ def deliver_rows(send: torch.Tensor, recv: torch.Tensor,
     ``tabs`` writes). One kernel launch for CUDA tensors (none when there
     is nothing to copy or zero), the plain version for CPU tensors.
     Returns ``recv``."""
-    _check_arenas(send, recv)
-    if send.device.type == "cpu":
-        _check_tables(send.device, send.shape[0], recv.shape[0], tabs,
-                      zero or NO_ZERO)
-        return deliver_rows_plain(send, recv, tabs, zero)
     arena_launcher(send, recv)(tabs, zero)
     return recv
 
 
 def arena_launcher(send: torch.Tensor, recv: torch.Tensor):
     """``issue(tabs, zero=None)``: one round of :func:`deliver_rows` into
-    these CUDA arenas. The arenas are checked, and their pointers, row
-    width and PyTorch's current stream read, once: a round is then one
-    ctypes call (what a rep of many rounds issues)."""
+    these arenas. The arenas are checked once, and on the card their
+    pointers, row width and PyTorch's current stream read once: a round
+    is then one ctypes call (what a rep of many rounds issues). For CPU
+    tensors a round is the plain version, after the same table checks."""
     _check_arenas(send, recv)
-    fn = _c_lib()
     device = send.device
+    send_rows, recv_rows = send.shape[0], recv.shape[0]
+    if device.type == "cpu":
+        def plain(tabs: RowTables | None, zero: ZeroRuns | None = None
+                  ) -> None:
+            zero = zero or NO_ZERO
+            _check_tables(device, send_rows, recv_rows, tabs, zero)
+            deliver_rows_plain(send, recv, tabs, zero)
+
+        return plain
+    fn = _c_lib()
     dev = device.index if device.index is not None \
         else torch.cuda.current_device()
     head = (send.data_ptr(), recv.data_ptr())
     tail = (recv.shape[1] * recv.element_size(),
             torch.cuda.current_stream(dev).cuda_stream, dev)
-    send_rows, recv_rows = send.shape[0], recv.shape[0]
 
     def issue(tabs: RowTables | None, zero: ZeroRuns | None = None) -> None:
         zero = zero or NO_ZERO

@@ -29,18 +29,19 @@ written into the trash row ``[F-1, 0]``. Rounds are separate launches on
 one stream (and, on the card, separate steps of the CUDA graph a chain
 replays); they are never merged.
 
-**One process** (the card, with no process group) is the reference's
-single-device path: no collective and no padding mask, padded entries
-gather ``flat_send[0]`` into the trash row, so its bytes equal the
-reference's. This is how the reference ran its defining configuration,
-16,384 ranks x 256 aggregators, on one chip: the compacted layouts (rows
-only for ranks that send or receive) are what fit it in device memory.
-On the card a round is then one launch of the row-delivery kernel
-(:mod:`~tpu_aggcomm_torch.backends.deliver_rows`,
-``csrc/deliver_rows.cu``): every receive row the round writes is copied
-once from its send row, and the rep's first launch zeroes the rows its
-rounds leave unwritten, so the receive arena is a ``torch.empty``. On
-the CPU it stays the plain gather and ``index_put_`` into a zeroed arena.
+**One device** (one process, or a mesh the group's size steps down to
+one) is the reference's single-device path: no collective and no padding
+mask, padded entries copy ``flat_send[0]`` into the trash row, so its
+bytes equal the reference's. This is how the reference ran its defining
+configuration, 16,384 ranks x 256 aggregators, on one chip: the
+compacted layouts (rows only for ranks that send or receive) are what
+fit it in device memory. A round is then one row delivery
+(:mod:`~tpu_aggcomm_torch.backends.deliver_rows`: the kernel
+``csrc/deliver_rows.cu`` on the card, its plain version on the CPU):
+every receive row the round writes is copied once from its send row, and
+the rep's first round zeroes the rows its rounds leave unwritten, so the
+receive arena is a ``torch.empty``. :func:`one_device_build` builds
+these rounds and zero runs from a schedule alone.
 
 Deep barrier-free schedules (32 rounds or more) take the reference's
 padded-table form (every round at the widest round's width, pads into
@@ -119,33 +120,30 @@ from tpu_aggcomm_torch.parallel import (agree_max, collective_group,
 from tpu_aggcomm_torch.tam.engine import TamMethod
 
 __all__ = ["TorchShardBackend", "block_round_tables", "recv_layout",
-           "send_counts", "fill_rows", "schedule_edges"]
+           "send_counts", "fill_rows", "schedule_edges", "one_device_build"]
 
 
 def _apply_block_round(flat_send, recv, tab, nbar: int, F: int, coll,
                        zero: ZeroRuns | None = None, issue=None):
-    """One throttle round on one process's shard: gather the round's
-    outgoing blocks, one all_to_all over the group, the scatter of the
-    landed payload, then the round's barriers as all-reduced tokens into
-    the trash row. Shared by the whole rep, its prefixes and the
-    profile_rounds segments, so the profiled decomposition cannot drift
-    from the program it decomposes.
+    """One throttle round on one process's shard, then the round's
+    barriers as tokens into the trash row. Shared by the whole rep, its
+    prefixes and the profile_rounds segments, so the profiled
+    decomposition cannot drift from the program it decomposes.
 
     ``tab`` is :class:`_RoundTab`. With one device the exchange is the
     identity, so neither the collective nor the padding mask runs (the
-    reference's ``single_dev`` path) and a barrier is the one device's
-    own token; on the card the round is one launch of the row-delivery
-    kernel, which also zeroes ``zero``'s rows (the rep's first round),
-    through the rep's ``issue`` (:func:`arena_launcher`) when given. A
-    process outside the mesh runs the same collectives with empty blocks
-    and adds 0 to every token."""
+    reference's ``single_dev`` path): the round is one row delivery of
+    ``tab.rows``, which also zeroes ``zero``'s rows (the rep's first
+    round), through the rep's ``issue`` (:func:`arena_launcher`) when
+    given, and a barrier is the one device's own token. Under an
+    exchange: gather the round's outgoing blocks, one all_to_all over the
+    group, the scatter of the landed payload, and each barrier an
+    all-reduced token. A process outside the mesh runs the same
+    collectives with empty blocks and adds 0 to every token."""
     import torch.distributed as dist
 
-    if tab.splits is None:
-        if recv.is_cuda:
-            (issue or arena_launcher(flat_send, recv))(tab.rows, zero)
-        else:
-            recv[tab.sc] = flat_send[tab.pk]
+    if tab.rows is not None:
+        (issue or arena_launcher(flat_send, recv))(tab.rows, zero)
         for _ in range(nbar):
             recv[F - 1, 0] = recv[0, 0]
         return recv
@@ -331,33 +329,36 @@ def fill_rows(src, seed, iter_: int, data_size: int, device) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class _RoundTab:
-    """One round's tables on one process: int64 gather (``pk``, pads
-    clamped to 0) and scatter (``sc``, pads to the trash row) indices in
-    the group's rank order; under an exchange the ``(entries, 1)``
-    padding mask and the per-rank chunk sizes of the all_to_all
-    (``splits``, 0 for processes outside the mesh), else None; whether
-    this process holds ranks (``member``); and with no exchange on the
-    card, the row-delivery kernel's tables (``rows``), else None."""
+    """One round's tables on one process: the round's payload edges
+    across the mesh (``edges``) and whether this process holds ranks
+    (``member``). On one device, the row delivery's tables (``rows``)
+    alone. Under an exchange, int64 gather (``pk``, pads clamped to 0)
+    and scatter (``sc``, pads to the trash row) indices in the group's
+    rank order, the ``(entries, 1)`` padding mask and the per-rank chunk
+    sizes of the all_to_all (``splits``, 0 for processes outside the
+    mesh)."""
 
-    pk: torch.Tensor
-    sc: torch.Tensor
-    mask: torch.Tensor | None
-    splits: list | None
+    edges: int
     member: bool
     rows: RowTables | None = None
+    pk: torch.Tensor | None = None
+    sc: torch.Tensor | None = None
+    mask: torch.Tensor | None = None
+    splits: list | None = None
 
 
 @dataclass
 class _Built:
     """One schedule's build on this process: its mesh, layouts, per-round
-    device tables and the rep/chain constructors. ``idx`` is None for a
-    process outside the mesh: it holds no ranks and runs the same
-    program over empty blocks."""
+    device tables, on one device the whole rep's zero runs (``zero``;
+    None under an exchange, whose arena is zeroed), and the rep/chain
+    constructors. ``idx`` is None for a process outside the mesh: it
+    holds no ranks and runs the same program over empty blocks."""
 
-    members: list
     ndev: int
     bsz: int
     idx: int | None
+    members: list = ()
     coll: object = None
     data_size: int = 1
     F: int = 1
@@ -366,8 +367,98 @@ class _Built:
     recv_base: np.ndarray | None = None
     send_base: np.ndarray | None = None
     rounds: list | None = None          # [(round id, _RoundTab, nbar)]
+    zero: ZeroRuns | None = None
     rep: object = None
     make_chain: object = None
+
+
+def _host_layout(schedule, ndev: int, idx: int | None
+                 ) -> tuple[_Built, list]:
+    """The host side of ``schedule``'s build over ``ndev`` devices, on
+    device ``idx`` (None: a process outside the mesh): compacted flat
+    layouts (only ranks that send/receive get rows — a dense (n,
+    nprocs)-slot layout would be n² at flagship scale), per-round block
+    tables, barrier rounds, and the orphan-barrier check. Returns the
+    :class:`_Built` holding the layouts and the host rounds, one ``(round
+    id, pack, scat, barriers)`` a round — one code path, so the profiled
+    segments can never decompose a different program than the whole-rep
+    build runs, and both modes accept exactly the same schedules."""
+    p = schedule.pattern
+    bsz = p.nprocs // ndev
+    with trace.span("tables.edges"):
+        edges = schedule_edges(schedule)
+    with trace.span("tables.rounds"):
+        counts = np.asarray(recv_slot_counts(p))
+        recv_base, F = recv_layout(counts, ndev, bsz)
+        send_base, Fs = recv_layout(send_counts(p), ndev, bsz)
+        tabs = block_round_tables(edges, ndev=ndev, bsz=bsz,
+                                  send_base=send_base, recv_base=recv_base,
+                                  F=F)
+        barrier_rounds = barrier_rounds_of(schedule)
+    orphans = set(barrier_rounds) - {r for (r, *_rest) in tabs}
+    if orphans:
+        raise ValueError(
+            f"schedule {schedule.name!r} has barrier-only rounds "
+            f"{sorted(orphans)}; the block lowering cannot represent "
+            f"a standalone fence")
+    built = _Built(ndev=ndev, bsz=bsz, idx=idx, data_size=p.data_size)
+    if idx is not None:
+        built.F, built.Fs = F, Fs
+        built.counts, built.recv_base = counts, recv_base
+        built.send_base = send_base
+    return built, [(r, pk, sc, barrier_rounds.get(r, 0))
+                   for (r, pk, sc, _m) in tabs]
+
+
+def _scan_form(host: list, F: int) -> list:
+    """``host``'s rounds as the rep runs them. Many-round barrier-free
+    schedules take the reference's scan form: every round padded to the
+    widest round (pads -> trash)."""
+    if len(host) < 32 or any(nbar for (*_rest, nbar) in host):
+        return host
+    Mmax = max(pk.shape[-1] for (_r, pk, _sc, _nb) in host)
+    out = []
+    for (r, pk, sc, nbar) in host:
+        if pk.shape[-1] < Mmax:
+            pad = [(0, 0), (0, 0), (0, Mmax - pk.shape[-1])]
+            pk = np.pad(pk, pad, constant_values=-1)
+            sc = np.pad(sc, pad, constant_values=F - 1)
+        out.append((r, pk, sc, nbar))
+    return out
+
+
+def _one_device_tab(built: _Built, pk, sc, device) -> _RoundTab:
+    """One round on one device: the row delivery's tables of the
+    reference's (1, 1, M) block tables (none outside the mesh)."""
+    edges = int((pk >= 0).sum())
+    if built.idx is None:
+        pk = sc = np.zeros(0, dtype=np.int32)
+    return _RoundTab(edges=edges, member=built.idx is not None,
+                     rows=row_tables(pk, sc, F=built.F, Fs=built.Fs,
+                                     device=device))
+
+
+def _zero_runs(F: int, rounds: list, device) -> ZeroRuns:
+    """The zero runs of a one-device rep of ``rounds`` into an ``F``-row
+    arena."""
+    return zero_runs(unwritten_runs(
+        F, [(tab.rows.dst, nbar) for (_r, tab, nbar) in rounds]), device)
+
+
+def one_device_build(schedule: Schedule, device, *, member: bool = True
+                     ) -> _Built:
+    """``schedule``'s build on one device, with no backend and no process
+    group: its layouts, its rounds (each the row delivery's tables, in
+    the scan form where it applies) and the whole rep's zero runs. What
+    ``TorchShardBackend`` runs at one device and the roofline prices.
+    ``member=False`` is a process outside a one-device mesh: the same
+    rounds over a one-row arena and no rows."""
+    built, host = _host_layout(schedule, 1, 0 if member else None)
+    with trace.span("tables.rounds"):
+        built.rounds = [(r, _one_device_tab(built, pk, sc, device), nbar)
+                        for (r, pk, sc, nbar) in _scan_form(host, built.F)]
+        built.zero = _zero_runs(built.F, built.rounds, device)
+    return built
 
 
 class TorchShardBackend:
@@ -573,57 +664,22 @@ class TorchShardBackend:
         return recv_bufs, timers
 
     # ------------------------------------------------------------------
-    def _layout_and_tabs(self, schedule, ndev: int, bsz: int):
-        """Shared host-side lowering for _compiled and _round_segments:
-        compacted flat layouts (only ranks that send/receive get rows — a
-        dense (n, nprocs)-slot layout would be n² at flagship scale),
-        per-round block tables, barrier rounds, and the orphan-barrier
-        check — one code path, so the profiled segments can never
-        decompose a different program than the whole-rep build runs, and
-        both modes accept exactly the same schedules."""
-        p = schedule.pattern
-        with trace.span("tables.edges"):
-            edges = schedule_edges(schedule)
-        with trace.span("tables.rounds"):
-            counts = np.asarray(recv_slot_counts(p))
-            recv_base, F = recv_layout(counts, ndev, bsz)
-            send_base, Fs = recv_layout(send_counts(p), ndev, bsz)
-            tabs = block_round_tables(edges, ndev=ndev, bsz=bsz,
-                                      send_base=send_base,
-                                      recv_base=recv_base, F=F)
-            barrier_rounds = barrier_rounds_of(schedule)
-        orphans = set(barrier_rounds) - {r for (r, *_rest) in tabs}
-        if orphans:
-            raise ValueError(
-                f"schedule {schedule.name!r} has barrier-only rounds "
-                f"{sorted(orphans)}; the block lowering cannot represent "
-                f"a standalone fence")
-        return counts, recv_base, F, send_base, Fs, tabs, barrier_rounds
-
     def _mesh_layout(self, schedule) -> tuple[_Built, list]:
         """The mesh and the host-side layouts of a round-structured
         schedule on this process, and its host block tables, one
-        ``(round id, pack, scat, barriers)`` a round."""
-        p = schedule.pattern
-        n = p.nprocs
-        members, ndev, idx = self._mesh(n)
-        bsz = n // ndev
-        (counts, recv_base, F, send_base, Fs, tabs,
-         barrier_rounds) = self._layout_and_tabs(schedule, ndev, bsz)
-        built = _Built(members=members, ndev=ndev, bsz=bsz, idx=idx,
-                       coll=self._coll, data_size=p.data_size)
-        if idx is not None:
-            built.F, built.Fs = F, Fs
-            built.counts, built.recv_base = counts, recv_base
-            built.send_base = send_base
-        return built, [(r, pk, sc, barrier_rounds.get(r, 0))
-                       for (r, pk, sc, _m) in tabs]
+        ``(round id, pack, scat, barriers)`` a round
+        (:func:`_host_layout`)."""
+        members, ndev, idx = self._mesh(schedule.pattern.nprocs)
+        built, host = _host_layout(schedule, ndev, idx)
+        built.members, built.coll = members, self._coll
+        return built, host
 
     def _device_tab(self, built: _Built, pk, sc) -> _RoundTab:
         """One round's :class:`_RoundTab` on this process from the
         reference's (ndev, ndev, M) block tables."""
+        if built.ndev == 1:
+            return _one_device_tab(built, pk, sc, self.device)
         _, dt, _w = lane_layout(built.data_size)
-        M = pk.shape[-1]
         if built.idx is None:
             pkl = scl = np.zeros(0, dtype=np.int64)
             mask_np = np.zeros((0, 1), dtype=bool)
@@ -631,18 +687,13 @@ class TorchShardBackend:
             order = self._order(built.members)
             pkl, scl = pk[built.idx][order], sc[built.idx][order]
             mask_np = (pkl >= 0).reshape(-1, 1)
-        single = built.ndev == 1
         return _RoundTab(
+            edges=int((pk >= 0).sum()), member=built.idx is not None,
             pk=self._idx(np.maximum(pkl, 0).reshape(-1)),
             sc=self._idx(scl.reshape(-1)),
-            mask=None if single else torch.as_tensor(
-                mask_np, device=self.device).to(dt),
-            splits=None if single else self._splits(
-                built.members if built.idx is not None else (), M),
-            member=built.idx is not None,
-            rows=row_tables(pkl, scl, F=built.F, Fs=built.Fs,
-                            device=self.device)
-            if single and self.device.type == "cuda" else None)
+            mask=torch.as_tensor(mask_np, device=self.device).to(dt),
+            splits=self._splits(built.members if built.idx is not None
+                                else (), pk.shape[-1]))
 
     def _compiled(self, schedule) -> _Built:
         """The schedule's build on this process (cached): mesh, layouts,
@@ -656,8 +707,18 @@ class TorchShardBackend:
         p = schedule.pattern
         n = p.nprocs
         _, dt, w = lane_layout(p.data_size)
-        built, host = self._mesh_layout(schedule)
-        idx, ndev, F = built.idx, built.ndev, built.F
+        members, ndev, idx = self._mesh(n)
+        if ndev == 1:
+            built = one_device_build(schedule, self.device,
+                                     member=idx is not None)
+            built.members, built.coll = members, self._coll
+        else:
+            built, host = self._mesh_layout(schedule)
+            with trace.span("tables.rounds"):
+                built.rounds = [
+                    (r, self._device_tab(built, pk, sc), nbar)
+                    for (r, pk, sc, nbar) in _scan_form(host, built.F)]
+        F, rounds, coll, dev = built.F, built.rounds, built.coll, self.device
         # slow-rank fault injection: per-DEVICE delay-loop iterations
         # (ranks sharing a device serialize on it, so the device's busy
         # work is the sum over its slow ranks), after the rounds INSIDE
@@ -668,100 +729,50 @@ class TorchShardBackend:
             from tpu_aggcomm_torch.faults.inject import slow_iter_table
             from tpu_aggcomm_torch.faults.spec import parse_fault
             tbl = slow_iter_table(parse_fault(schedule.fault), n,
-                                  max(len(host), 1))
+                                  max(len(rounds), 1))
             per_dev = tbl.reshape(ndev, built.bsz).sum(axis=1)
             delay = slow_tables(per_dev[idx:idx + 1], self.device)
-        # Many-round barrier-free schedules take the reference's scan
-        # form: every round padded to the widest round (pads -> trash)
-        scan = len(host) >= 32 and not any(nbar for (*_rest, nbar) in host)
-        Mmax = max((pk.shape[-1] for (_r, pk, _sc, _nb) in host), default=0)
-        rounds, round_edges = [], []
-        with trace.span("tables.rounds"):
-            for (r, pk, sc, nbar) in host:
-                round_edges.append(int((pk >= 0).sum()))
-                if scan and pk.shape[-1] < Mmax:
-                    pad = Mmax - pk.shape[-1]
-                    pk = np.concatenate(
-                        [pk, np.full((ndev, ndev, pad), -1, np.int32)],
-                        axis=2)
-                    sc = np.concatenate(
-                        [sc, np.full((ndev, ndev, pad), F - 1, np.int32)],
-                        axis=2)
-                rounds.append((r, self._device_tab(built, pk, sc),
-                               0 if scan else nbar))
-        built.rounds = rounds
-        coll, dev = built.coll, self.device
-        # with no exchange on the card the rounds are row-delivery
-        # launches: the arena is left unfilled and the first launch zeroes
-        # the rows the rep's rounds never write
-        deliver = dev.type == "cuda" and ndev == 1
-        zeros: dict = {}
+        # one device: row deliveries into an unfilled arena, the first
+        # zeroing the rows the rep's rounds never write; under an
+        # exchange the arena is zeroed
+        new_arena = torch.zeros if built.zero is None else torch.empty
+        zeros = {len(rounds): built.zero}
 
         def zero_of(upto):
             """The zero runs of the rep truncated to ``upto`` rounds,
             made once for each length."""
             k = len(rounds[:upto])
             if k not in zeros:
-                zeros[k] = zero_runs(unwritten_runs(
-                    F, [(tab.rows.dst, nbar)
-                        for (_r, tab, nbar) in rounds[:k]]), dev)
+                zeros[k] = _zero_runs(F, rounds[:k], dev)
             return zeros[k]
-
-        if deliver:
-            with trace.span("tables.rounds"):
-                zero_of(None)
-
-        def arena():
-            if deliver:
-                return torch.empty((F, w), dtype=dt, device=dev)
-            return torch.zeros((F, w), dtype=dt, device=dev)
-
-        def launch_of(flat_send, recv, upto):
-            """The rep's launcher and its first round's zero runs (None,
-            None off the row-delivery path)."""
-            if not deliver:
-                return None, None
-            return arena_launcher(flat_send, recv), zero_of(upto)
-
-        def traced_rep(rec, flat_send, upto):
-            """:func:`rep` inside a ``rep`` span: the receive arena's
-            ``rep.arena``, then one ``rep.issue`` a round (its id and its
-            edges across the mesh; on the first, the rows its launch
-            zeroes)."""
-            with rec.span("rep"):
-                with rec.span("rep.arena"):
-                    recv = arena()
-                issue, zero = launch_of(flat_send, recv, upto)
-                for (r, tab, nbar), ne in zip(rounds[:upto], round_edges):
-                    args = {} if zero is None else {"zero_rows": zero.rows}
-                    with rec.span("rep.issue", round=r, edges=ne, **args):
-                        _apply_block_round(flat_send, recv, tab, nbar, F,
-                                           coll, zero, issue)
-                    zero = None
-                if zero is not None:           # no round: the zeroing
-                    with rec.span("rep.issue", zero_rows=zero.rows):
-                        issue(None, zero)
-                if delay is not None:
-                    slow_delay(flat_send[None], recv[None], delay)
-            return recv
 
         def rep(flat_send, upto: int | None = None):
             """One whole rep on this device's shard: flat_send (Fs, w) ->
             recv (F, w); ``upto`` truncates to the first upto rounds (the
-            prefix programs measure_round_times differences)."""
-            rec = trace.current()
-            if rec is not None:
-                return traced_rep(rec, flat_send, upto)
-            recv = arena()
-            issue, zero = launch_of(flat_send, recv, upto)
-            for (_r, tab, nbar) in rounds[:upto]:
-                _apply_block_round(flat_send, recv, tab, nbar, F, coll, zero,
-                                   issue)
-                zero = None
-            if zero is not None:                # no round: the zeroing
-                issue(None, zero)
-            if delay is not None:
-                slow_delay(flat_send[None], recv[None], delay)
+            prefix programs measure_round_times differences). While a
+            trace recorder is on, a ``rep`` span holding the receive
+            arena's ``rep.arena``, then one ``rep.issue`` a round (its id
+            and its edges across the mesh; on one device, the first also
+            the rows it zeroes)."""
+            with trace.span("rep"):
+                with trace.span("rep.arena"):
+                    recv = new_arena((F, w), dtype=dt, device=dev)
+                issue = zero = None
+                if built.zero is not None:
+                    issue = arena_launcher(flat_send, recv)
+                    zero = zero_of(upto)
+                for (r, tab, nbar) in rounds[:upto]:
+                    args = {} if zero is None else {"zero_rows": zero.rows}
+                    with trace.span("rep.issue", round=r, edges=tab.edges,
+                                    **args):
+                        _apply_block_round(flat_send, recv, tab, nbar, F,
+                                           coll, zero, issue)
+                    zero = None
+                if zero is not None:            # no round: the zeroing
+                    with trace.span("rep.issue", zero_rows=zero.rows):
+                        issue(None, zero)
+                if delay is not None:
+                    slow_delay(flat_send[None], recv[None], delay)
             return recv
 
         def make_chain(upto: int | None = None):

@@ -92,8 +92,10 @@ __all__ = ["TorchSimBackend", "NotPortedError", "dense_send_bytes",
 
 
 class NotPortedError(NotImplementedError):
-    """A reference feature this port does not carry yet; ROADMAP.md
-    (queue A) lists it in the order it will be ported."""
+    """A reference feature this port refuses by name: K3 across cards
+    (``cuda_dma*`` under a process group), ``--fault`` on ``torch_ici``
+    and on ``native``, and ``torch_shard``'s TAM fallback. ROADMAP.md
+    says what each waits for."""
 
 
 def dense_send_bytes(p: AggregatorPattern, iter_: int) -> np.ndarray:

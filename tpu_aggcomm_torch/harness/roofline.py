@@ -87,19 +87,18 @@ lane all-reduced into one lane of the trash row (the reference's
 of a rep over ndev devices is the total over ``ndev`` cards' bandwidth
 (``devices``), a lower bound of the busiest card's time.
 
-On one card with no process group (``ndev`` 1) a round is one launch of
-the row-delivery kernel (:mod:`tpu_aggcomm_torch.backends.deliver_rows`):
-every edge's row is read once and written once (``gather_read``,
-``scatter_write``); nothing is materialized between them
-(``intermediate`` 0); ``zero_init`` is only the rows the rounds never
-write, zeroed by the first launch; the kernel reads two int32 tables an
-entry and the zero runs' two (``index_read``); a padded round's pads are
-one entry, send row 0 read and written into the trash row (``pad``). The
-CPU runs the one-device form of the group program instead (the zero
-fill, then a gather and an ``index_put_`` a round, no mask and no
-all_to_all): ``_shard_rep_bytes(schedule, 1)``, which is not the card's
-floor. The chained scaffold adds the XOR of every device's flat send
-buffer and the token's read of every live row's lane 0.
+On one device (``ndev`` 1) a round is one launch of the row-delivery
+kernel (:mod:`tpu_aggcomm_torch.backends.deliver_rows`), priced from the
+rounds and zero runs the backend builds
+(``torch_shard.one_device_build``): every edge's row is read once and
+written once (``gather_read``, ``scatter_write``); nothing is
+materialized between them (``intermediate`` 0); ``zero_init`` is only
+the rows the rounds never write, zeroed by the first launch; the kernel
+reads two int32 tables an entry and the zero runs' two (``index_read``);
+a padded round's pads are one entry, send row 0 read and written into
+the trash row (``pad``). The chained scaffold adds the XOR of every
+device's flat send buffer and the token's read of every live row's
+lane 0.
 
 The model imports the backends' table builders, and with them torch,
 only when a rep is priced; :func:`floor_seconds` and the constants need
@@ -200,8 +199,8 @@ def _shard_layout(p, ndev: int):
 
 
 def _shard_rep_bytes(schedule, ndev: int) -> RepBytes:
-    """One rep of ``torch_shard``'s group program over ``ndev`` devices
-    (at ``ndev`` 1 the CPU's; module docstring)."""
+    """One rep of ``torch_shard``'s group program over ``ndev`` >= 2
+    devices (module docstring)."""
     import numpy as np
 
     from tpu_aggcomm_torch.backends.torch_shard import (block_round_tables,
@@ -224,58 +223,31 @@ def _shard_rep_bytes(schedule, ndev: int) -> RepBytes:
         widths = [max(widths)] * len(widths)     # the padded-table form
     entries = ndev * ndev * sum(widths)
     nedges = len(edges)
-    inter = 2 * entries * d
-    index = 2 * _IDX * entries
-    if ndev > 1:
-        inter += 4 * entries * d
-        index += entries * _lane_bytes(d)
     return RepBytes(
         gather_read=nedges * d, scatter_write=nedges * d,
-        zero_init=ndev * F * d, intermediate=inter, refence_walks=0,
-        rounds=max(len(tabs), 1), edges=nedges, index_read=index,
-        barrier=0, pad=2 * (entries - nedges) * d, devices=ndev)
+        zero_init=ndev * F * d, intermediate=6 * entries * d,
+        refence_walks=0, rounds=max(len(tabs), 1), edges=nedges,
+        index_read=entries * (2 * _IDX + _lane_bytes(d)), barrier=0,
+        pad=2 * (entries - nedges) * d, devices=ndev)
 
 
 def _deliver_rep_bytes(schedule) -> RepBytes:
-    """One ``torch_shard`` rep on one card with no group: a row-delivery
-    launch a round (module docstring)."""
-    import numpy as np
+    """One ``torch_shard`` rep on one device: a row-delivery launch a
+    round (module docstring)."""
+    from tpu_aggcomm_torch.backends.torch_shard import one_device_build
 
-    from tpu_aggcomm_torch.backends.deliver_rows import unwritten_runs
-    from tpu_aggcomm_torch.backends.torch_shard import (block_round_tables,
-                                                        recv_layout,
-                                                        schedule_edges,
-                                                        send_counts)
-    from tpu_aggcomm_torch.core.schedule import barrier_rounds_of
-    from tpu_aggcomm_torch.harness.verify import recv_slot_counts
-
-    p = schedule.pattern
-    n, d = p.nprocs, p.data_size
-    recv_base, F = recv_layout(np.asarray(recv_slot_counts(p)), 1, n)
-    send_base, _Fs = recv_layout(send_counts(p), 1, n)
-    edges = schedule_edges(schedule)
-    tabs = block_round_tables(edges, ndev=1, bsz=n, send_base=send_base,
-                              recv_base=recv_base, F=F)
-    barriers = barrier_rounds_of(schedule)
-    widest = max((m for (*_rest, m) in tabs), default=0)
-    scan = len(tabs) >= 32 and not barriers
-    rounds, pads = [], 0
-    for (r, _pk, sc, m) in tabs:
-        dst = sc.reshape(-1)
-        if scan and m < widest:          # the round's pads: one entry
-            dst = np.append(dst, F - 1)
-            pads += 1
-        rounds.append((dst, barriers.get(r, 0)))
-    runs = unwritten_runs(F, rounds)
-    zero_rows = sum(b - a for a, b in runs)
-    nedges = len(edges)
+    d = schedule.pattern.data_size
+    built = one_device_build(schedule, "cpu")
+    nedges = sum(tab.edges for (_r, tab, _nb) in built.rounds)
+    entries = sum(tab.rows.n_rows for (_r, tab, _nb) in built.rounds)
+    zero = built.zero
     return RepBytes(
         gather_read=nedges * d, scatter_write=nedges * d,
-        zero_init=zero_rows * d, intermediate=0, refence_walks=0,
-        rounds=max(len(tabs), 1), edges=nedges,
-        index_read=8 * (nedges + pads) + (4 * (2 * len(runs) + 1)
-                                          if runs else 0),
-        barrier=0, pad=2 * pads * d, devices=1)
+        zero_init=zero.rows * d, intermediate=0, refence_walks=0,
+        rounds=max(len(built.rounds), 1), edges=nedges,
+        index_read=8 * entries + (4 * (2 * len(zero.runs) + 1)
+                                  if zero.runs else 0),
+        barrier=0, pad=2 * (entries - nedges) * d, devices=1)
 
 
 def _barrier_bytes(n: int, n_recv_slots: int, d: int) -> int:

@@ -16,10 +16,12 @@ The port of ``tpu_aggcomm/native/fuse.py``, in two halves:
   edge writes as runs of contiguous rows, and ONE launch per rep zeroes
   those rows and copies every round's edge rows, with one fence per
   round, so rounds stay distinct steps. The wrapper :func:`fused_rep`
-  takes the plain version (:func:`fused_rep_plain`, a Python loop of
-  per-round index copies) for a CPU tensor, launches the kernel for a
-  CUDA tensor into a fresh arena (or the caller's ``out``) and counts
-  launches in ``fused_rep.launches``. On the card :func:`plan_tables`
+  writes a fresh ``torch.empty`` arena (or the caller's ``out``): for a
+  CPU tensor through the kernel's contract in plain torch (the zero
+  runs, then a Python loop of per-round index copies), for a CUDA tensor
+  by launching the kernel, counted in ``fused_rep.launches``.
+  :func:`fused_rep_plain` (a zeroed arena, then the same copies) is the
+  reference tests hold K2 against. On the card :func:`plan_tables`
   binds the launch once (:class:`BoundRep`): a rep of a send in the
   plan's lane layout is then a key compare, an allocation and one C
   call; any other CUDA call takes the full argument check, counted in
@@ -458,7 +460,7 @@ def fused_rep_plain(send: torch.Tensor, tabs: FusedTables) -> torch.Tensor:
 
 def _plain_rounds(send: torch.Tensor, tabs: FusedTables,
                   recv: torch.Tensor) -> torch.Tensor:
-    """The plain version's copies into a zeroed ``recv``."""
+    """The plain version's copies into ``recv``, rounds in order."""
     src, ss = tabs.src.long(), tabs.sslot.long()
     dst, ds = tabs.dst.long(), tabs.dslot.long()
     ptr = tabs.round_ptr
@@ -475,13 +477,7 @@ def _fused_rep_into(send: torch.Tensor, tabs: FusedTables,
     flat = out.view(-1, out.shape[2])
     for a, b in tabs.zero_runs:
         flat[a:b] = 0
-    ptr = tabs.round_ptr
-    src, ss = tabs.src.long(), tabs.sslot.long()
-    dst, ds = tabs.dst.long(), tabs.dslot.long()
-    for k in range(len(ptr) - 1):
-        a, b = ptr[k], ptr[k + 1]
-        out[dst[a:b], ds[a:b]] = send[src[a:b], ss[a:b]]
-    return out
+    return _plain_rounds(send, tabs, out)
 
 
 @functools.cache
@@ -634,7 +630,8 @@ def fused_rep(send: torch.Tensor, tabs: FusedTables,
               stamps: torch.Tensor | None = None) -> torch.Tensor:
     """One rep of the whole plan: recv (n, R+1, w), trash row last and
     zero, into ``out`` when given (its contents are overwritten, every
-    row). CPU tensors take the plain version. On the card: ONE launch,
+    row), else into a ``torch.empty`` arena. CPU tensors take the
+    kernel's contract in plain torch. On the card: ONE launch,
     the never-written rows zeroed inside it; ``stamps`` (int64, ``grid *
     (2 + 2 * max(R, 1))``, diagnostic calls only) receives each CTA's
     %globaltimer stamps. The call stays asynchronous: :func:`check_fence`
@@ -647,7 +644,7 @@ def fused_rep(send: torch.Tensor, tabs: FusedTables,
     trace recorder is on, the call is a ``rep`` span (its args:
     ``full_checks`` after the call) holding ``rep.arena`` (the receive
     arena's allocation) and ``rep.issue`` (the launch; on the CPU the
-    plain version's copies)."""
+    contract's zero runs and copies)."""
     rec = trace.current()
     if rec is not None:
         return _traced_fused_rep(rec, send, tabs, out, stamps)
@@ -666,13 +663,11 @@ def fused_rep(send: torch.Tensor, tabs: FusedTables,
         fused_rep.launches += 1
         return out
     _check_args(send, tabs, out)
-    if send.device.type == "cpu":
-        if out is None:
-            return fused_rep_plain(send, tabs)
-        return _fused_rep_into(send, tabs, out)
     if out is None:
         out = torch.empty((tabs.nprocs, tabs.n_recv_rows, send.shape[2]),
                           dtype=send.dtype, device=send.device)
+    if send.device.type == "cpu":
+        return _fused_rep_into(send, tabs, out)
     _launch(send, tabs, out, stamps)
     return out
 
@@ -686,27 +681,21 @@ def _traced_fused_rep(rec, send: torch.Tensor, tabs: FusedTables, out,
                  and b.takes(send))
         if not bound:
             _check_args(send, tabs, out)
-        cpu = not bound and send.device.type == "cpu"
-        fresh = out is None
-        if fresh:
+        if out is None:
             with rec.span("rep.arena"):
-                shape = (tabs.nprocs, tabs.n_recv_rows, send.shape[2])
                 if bound:
                     out = torch.empty_like(b.arena)
-                elif cpu:
-                    out = send.new_zeros(shape)
                 else:
-                    out = torch.empty(shape, dtype=send.dtype,
-                                      device=send.device)
+                    out = torch.empty(
+                        (tabs.nprocs, tabs.n_recv_rows, send.shape[2]),
+                        dtype=send.dtype, device=send.device)
         with rec.span("rep.issue"):
             if bound:
                 b.issue(send, out)
-            elif not cpu:
-                _launch(send, tabs, out, stamps)
-            elif fresh:
-                _plain_rounds(send, tabs, out)
-            else:
+            elif send.device.type == "cpu":
                 _fused_rep_into(send, tabs, out)
+            else:
+                _launch(send, tabs, out, stamps)
         span.note(full_checks=fused_rep.full_checks)
     return out
 
