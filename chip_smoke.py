@@ -244,9 +244,14 @@ first failure (no phase's failure is caught):
    plain version and the bytes bound (2*E*d plus the zeroed rows at
    3.35 TB/s); then the ``-c 64`` rep's 256 rounds at d=2048, each
    launched alone (its own device time from the profiler's kernel
-   records, and its bound), and the rep as the main path issues them
-   (programmatic dependent launches back to back, CUDA events), the two
-   arenas equal;
+   records, and its bound), the rep as the main path issues them (one
+   many-round launch, its rounds fenced inside the kernel) and as one
+   launch a round (programmatic dependent launches), both back to back
+   by CUDA events, their arenas equal to each other and to the plain
+   version's; from one stamped launch each round's copy time and each
+   fence's time (median, p95) beside the round's bound and the 1.5 us
+   fence target; and the README shape's 11 rounds both ways, the one
+   launch held against the rounds and the plain version;
 16. slice 15's path (``mesh_tier``), the one-rank-per-device tier:
    (a) a NCCL world of one process on ``cuda:0``, a child started with
    ``python -m torch.distributed.run --standalone --nproc_per_node 1
@@ -387,7 +392,7 @@ def phase_setup() -> None:
     check(all(any(k in ln for ln in lines) for k in
               ("exchange_chain_kernel", "fused_rep_kernel",
                "dma_steps_kernel", "slow_delay_kernel",
-               "deliver_rows_kernel")),
+               "deliver_rows_kernel", "deliver_rounds_kernel")),
           f"ptxas report lacks a kernel: {lines}")
     for ln in lines:
         print(f"# {ln}")
@@ -3565,6 +3570,7 @@ def phase_shard_flagship(dev) -> dict:
         readme = ["-n", "32", "-m", "1", "-a", "14", "-d", "2048", "-c", "3",
                   "--chained", "--verify", "--results-csv", csv]
         slow_delay.launches = deliver_rows.launches = 0
+        deliver_rows.fused_rounds = 0
         out["readme"] = shard_cell("README m=1 n=32 a=14 d=2048 c=3",
                                    [*readme, "--backend", "torch_shard"])
         with recorded_backends() as made:
@@ -3585,9 +3591,13 @@ def phase_shard_flagship(dev) -> dict:
              "--backend", "torch_shard", "--chained", "--verify",
              "--results-csv", csv])
         out["counts"] = {"slow_delay": slow_delay.launches,
-                         "deliver_rows": deliver_rows.launches}
+                         "deliver_rows": deliver_rows.launches,
+                         "deliver_rows_fused_rounds":
+                             deliver_rows.fused_rounds}
         check(deliver_rows.launches > 0,
               "torch_shard on the card launched no deliver_rows")
+        check(deliver_rows.fused_rounds > 0,
+              "torch_shard's README rounds took no many-round launch")
         print(f"# shard_flagship launches: {json.dumps(out['counts'])}",
               flush=True)
 
@@ -3642,9 +3652,17 @@ def phase_deliver_rows(dev) -> dict:
     rounds) at d=2048: each round's own device time, launched alone after
     a synchronize, from the profiler's kernel records (a record of a
     launch back to back would also hold its wait for the previous round:
-    each is a programmatic dependent launch), against its own bound; and
-    the rep as the main path issues it, by CUDA events over back-to-back
-    reps. The rep's arena must equal the rounds' launched alone."""
+    each is a programmatic dependent launch), against its own bound; the
+    rep as the main path issues it (one launch, its rounds fenced inside
+    the kernel) and as one launch a round, each by CUDA events over
+    back-to-back reps, their arenas equal to each other and to
+    ``deliver_rounds_plain`` into a 0xFF arena; and from one stamped launch,
+    each round's copy time and each fence's time (the latest CTA's stamp
+    after the round's copies, and after the fence) beside the round's
+    bound and the 1.5 us fence target, no CTA past a fence before every
+    CTA has copied its round. Last, the README shape's 11 rounds as one
+    launch and as one launch a round (CUDA graph and eager), the one
+    launch held against both the rounds and the plain version."""
     import warnings
 
     import torch
@@ -3652,8 +3670,11 @@ def phase_deliver_rows(dev) -> dict:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from tpu_aggcomm_torch.backends.deliver_rows import (arena_launcher,
+                                                         deliver_rounds,
                                                          deliver_rows,
-                                                         deliver_rows_plain)
+                                                         deliver_rounds_plain,
+                                                         deliver_rows_plain,
+                                                         rounds_plan)
     from tpu_aggcomm_torch.backends.torch_shard import TorchShardBackend
     from tpu_aggcomm_torch.core.methods import compile_method
     from tpu_aggcomm_torch.core.pattern import AggregatorPattern
@@ -3730,13 +3751,24 @@ def phase_deliver_rows(dev) -> dict:
 
     built, build64_s = build(64)
     F, R, d = built.F, len(built.rounds), 2048
-    zero = built.zero
+    zero, tabs = built.zero, built.fused
+    check(tabs is not None, "deliver_rows -c 64: the rep is not one launch")
     send = random_send(built.Fs, d // 4)
     recv = torch.empty((F, d // 4), dtype=torch.int32, device=dev)
     issue = arena_launcher(send, recv)
+
+    def per_round():
+        for i, (_r, t, _nb) in enumerate(built.rounds):
+            issue(t.rows, zero if i == 0 else None)
+
     built.rep(send)
+    per_round()
     torch.cuda.synchronize()
+    launches = deliver_rows.launches
     rep_ms = cuda_ms(lambda: built.rep(send), 10, 2)
+    check(deliver_rows.launches - launches == 12, "deliver_rows -c 64: the "
+          "rep is not one launch")
+    per_round_ms = cuda_ms(per_round, 10, 2)
     with warnings.catch_warnings(), profile(
             activities=[ProfilerActivity.CPU,
                         ProfilerActivity.CUDA]) as prof:
@@ -3749,8 +3781,14 @@ def phase_deliver_rows(dev) -> dict:
                 torch.cuda.synchronize()
     got = built.rep(send)
     torch.cuda.synchronize()
-    check(torch.equal(got, recv), "deliver_rows -c 64: the rep's arena != "
-          "its rounds launched alone")
+    check(torch.equal(got, recv), "deliver_rows -c 64: the rep's one "
+          "launch != its rounds launched one a round")
+    want = deliver_rounds_plain(send, torch.full_like(got, -1), tabs, R, zero)
+    check(torch.equal(got, want), "deliver_rows -c 64: the rep's one "
+          "launch != the plain version")
+    del want
+    check(tabs.sync.tolist() == [0, 0, 0, 0], f"deliver_rows -c 64: fence "
+          f"words {tabs.sync.tolist()} after the reps")
     events = list(prof.profiler.kineto_results.events())
     t0 = min((e.start_ns() for e in events
               if e.device_type() == DeviceType.CPU and e.name() == ALONE),
@@ -3764,16 +3802,81 @@ def phase_deliver_rows(dev) -> dict:
     bounds = [bound_ms(t.rows.n_rows, zero.rows if i == 0 else 0, d) * 1e3
               for i, (_r, t, _nb) in enumerate(built.rounds)]
     own_mean = sum(own) / len(own)
+    # one stamped launch: per CTA its start, after each round's copies,
+    # after each fence, its end (deliver_rows.cu)
+    plan = rounds_plan(send, got, tabs, R, zero)
+    stamps = torch.zeros(plan["grid"] * (2 + 2 * R), dtype=torch.int64,
+                         device=dev)
+    deliver_rounds(send, got, tabs, R, zero, stamps=stamps)
+    torch.cuda.synchronize()
+    check(torch.equal(got, recv), "deliver_rows -c 64: the stamped launch "
+          "!= the rounds launched one a round")
+    st = stamps.view(plan["grid"], 2 + 2 * R)[:plan["copy_ctas"]].cpu()
+    copied = st[:, 1:2 * R:2].max(0).values
+    fenced = st[:, 2:2 * R + 1:2].max(0).values
+    check(all(int(st[:, 2 + 2 * k].min()) >= int(copied[k])
+              for k in range(R - 1)),
+          "deliver_rows -c 64: a CTA left a fence before every CTA had "
+          "copied its round")
+    start = torch.cat([st[:, 0].min().view(1), fenced[:-1]])
+    copy_us = sorted(((copied - start).double() / 1e3).tolist())
+    fence_us = sorted(((fenced - copied)[:-1].double() / 1e3).tolist())
+
+    def q(xs, f):
+        return xs[min(len(xs) - 1, int(f * len(xs)))]
+
     c64 = dict(shape=[n, a, d, 64], rounds=R, recorded=len(own),
                rows_per_round=built.rounds[0][1].rows.n_rows,
                zero_rows=zero.rows, own_us_mean=own_mean,
                own_us_median=own[len(own) // 2], own_us_min=own[0],
                own_us_max=own[-1], bound_us_round=sum(bounds) / R,
                own_roofline=sum(bounds) / R / own_mean,
-               rep_us=rep_ms * 1e3, bound_us_rep=sum(bounds),
-               rep_roofline=sum(bounds) / (rep_ms * 1e3), build_s=build64_s)
+               rep_us=rep_ms * 1e3, per_round_us=per_round_ms * 1e3,
+               bound_us_rep=sum(bounds),
+               rep_roofline=sum(bounds) / (rep_ms * 1e3),
+               grid=plan["grid"], copy_ctas=plan["copy_ctas"],
+               copy_us_median=q(copy_us, 0.5), copy_us_p95=q(copy_us, 0.95),
+               fence_us_median=q(fence_us, 0.5),
+               fence_us_p95=q(fence_us, 0.95), fence_target_us=1.5,
+               stamped_us=float(st[:, 1 + 2 * R].max() - st[:, 0].min()) / 1e3,
+               build_s=build64_s)
     out["c64"] = c64
     out["build_s"] = build_s
+    del built, tabs, send, recv, got
+    torch.cuda.empty_cache()
+
+    # the README shape (11 rounds of about 41 rows): latency, not bytes
+    s = compile_method(1, AggregatorPattern(32, 14, data_size=2048,
+                                            comm_size=3))
+    small = TorchShardBackend(dev)._compiled(s)
+    send = random_send(small.Fs, 512)
+    recv = torch.empty((small.F, 512), dtype=torch.int32, device=dev)
+
+    def small_rounds():
+        # the issuer reads the current stream, as the rep's does: made
+        # here, a graph's capture takes its launches
+        issue = arena_launcher(send, recv)
+        for i, (_r, t, _nb) in enumerate(small.rounds):
+            issue(t.rows, small.zero if i == 0 else None)
+
+    small_rounds()
+    check(small.fused is not None and torch.equal(small.rep(send), recv),
+          "deliver_rows README: the rep's one launch != its rounds")
+    check(torch.equal(recv, deliver_rounds_plain(
+        send, torch.full_like(recv, -1), small.fused, len(small.rounds),
+        small.zero)), "deliver_rows README: the rep's one launch != the "
+          "plain version")
+    readme = dict(rounds=len(small.rounds),
+                  rep_graph_us=graph_ms(lambda: small.rep(send), 50) * 1e3,
+                  per_round_graph_us=graph_ms(small_rounds, 50) * 1e3,
+                  rep_eager_us=cuda_ms(lambda: small.rep(send), 200) * 1e3,
+                  per_round_eager_us=cuda_ms(small_rounds, 200) * 1e3)
+    out["readme"] = readme
+    print(f"# deliver_rows README n=32 a=14 d=2048 -c 3: {readme['rounds']} "
+          f"rounds; one launch {readme['rep_graph_us']:.2f} us (CUDA graph), "
+          f"{readme['rep_eager_us']:.2f} us eager; one launch a round "
+          f"{readme['per_round_graph_us']:.2f} us (graph), "
+          f"{readme['per_round_eager_us']:.2f} us eager", flush=True)
     print(f"# deliver_rows n={n} a={a} d={d} -c 64: {R} rounds of "
           f"{c64['rows_per_round']} rows; a round launched alone (a "
           f"synchronize between launches; {len(own)} profiler records): "
@@ -3781,10 +3884,18 @@ def phase_deliver_rows(dev) -> dict:
           f"{c64['own_us_max']:.2f} (median {c64['own_us_median']:.2f}), "
           f"{100 * c64['own_roofline']:.2f}% of its bound "
           f"({c64['bound_us_round']:.2f} us); the rep as the main path "
-          f"issues it (programmatic dependent launches back to back, CUDA "
-          f"events over 10 reps): {c64['rep_us']:.1f} us, "
+          f"issues it (one launch of {plan['grid']} CTAs, its rounds fenced "
+          f"inside, CUDA events over 10 reps): {c64['rep_us']:.1f} us, "
           f"{100 * c64['rep_roofline']:.2f}% of its bound "
-          f"({c64['bound_us_rep']:.1f} us); == the rep's arena", flush=True)
+          f"({c64['bound_us_rep']:.1f} us); one launch a round "
+          f"{c64['per_round_us']:.1f} us; == the rounds launched one a "
+          f"round", flush=True)
+    print(f"# deliver_rows -c 64 stamps: a round's copies "
+          f"{c64['copy_us_median']:.2f} us median, {c64['copy_us_p95']:.2f} "
+          f"p95 (bound {c64['bound_us_round']:.2f}); a fence "
+          f"{c64['fence_us_median']:.3f} us median, {c64['fence_us_p95']:.3f} "
+          f"p95 (target {c64['fence_target_us']}); the stamped launch "
+          f"{c64['stamped_us']:.1f} us", flush=True)
     return out
 
 

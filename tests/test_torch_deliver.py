@@ -205,8 +205,9 @@ def test_roofline_prices_the_kernels_rounds(method, n, a, d, c, bt, fault):
     """``lowering="torch_shard"`` on one device prices the card's rounds:
     every edge's row read and written once, nothing in between, the rows
     of the first launch's zero runs, two int32 entries a table row and
-    the zero runs' tables, one pad entry a padded round; fewer bytes than
-    a zero fill of the arena and a gather and ``index_put_`` of the same
+    the zero runs' tables, the round offsets of a rep of many barrier-free
+    rounds (one launch), one pad entry a padded round; fewer bytes than a
+    zero fill of the arena and a gather and ``index_put_`` of the same
     entries."""
     from tpu_aggcomm_torch.harness import roofline
     s = compile_method(method, AggregatorPattern(n, a, data_size=d,
@@ -227,8 +228,11 @@ def test_roofline_prices_the_kernels_rounds(method, n, a, d, c, bt, fault):
             rb.refence_walks, rb.barrier) == (E * d, E * d, 0, 0, 0)
     assert rb.zero_init == sum(b_ - a_ for a_, b_ in runs) * d
     assert rb.pad == 2 * pads * d
+    one_launch = len(tabs) > 1 and not any(nb for _t, nb in tabs)
+    assert (built.fused is not None) == one_launch
     assert rb.index_read == 8 * entries + (4 * (2 * len(runs) + 1)
-                                           if runs else 0)
+                                           if runs else 0) + (
+        4 * (len(tabs) + 1) if one_launch else 0)
     assert (rb.rounds, rb.devices) == (len(tabs), 1)
     zero_fill_gather_put = F * d + 4 * entries * d + 2 * 8 * entries
     assert rb.total() < zero_fill_gather_put
@@ -248,3 +252,144 @@ def test_roofline_prices_the_kernel_on_one_device_only():
         roofline._tam_shard_rep_bytes(tam)
     with pytest.raises(ValueError, match="unknown lowering 'deliver_rows'"):
         roofline.rep_bytes(s, lowering="deliver_rows")
+
+
+# -- a rep of many rounds as one launch ---------------------------------------
+
+def _per_round_plain(built, send, k, fill):
+    """Today's per-round rounds: the first ``k`` rounds of ``built``, one
+    plain round each through the round issuer, the prefix's zero runs
+    with the first, into an arena of ``fill``."""
+    zero = dr.zero_runs(dr.unwritten_runs(
+        built.F, [(t.rows.dst, nb) for (_r, t, nb) in built.rounds[:k]]),
+        "cpu")
+    recv = torch.full((built.F, send.shape[1]), fill, dtype=send.dtype)
+    issue = dr.arena_launcher(send, recv)
+    for i, (_r, t, _nb) in enumerate(built.rounds[:k]):
+        issue(t.rows, zero if i == 0 else None)
+    return recv, zero
+
+
+@pytest.mark.parametrize("n,a,c,d,upto", [
+    (32, 14, 3, 64, None),          # the README's m=1 c=3: 11 rounds
+    (256, 16, 16, 32, None),        # 16 rounds
+    (1024, 64, 16, 16, None),       # Theta-shaped m=1 (closed form): 64
+                                    # rounds in the scan form
+    (1024, 64, 16, 16, 5),          # a truncated prefix
+    (256, 16, 16, 32, 2),
+])
+def test_many_round_plain_equals_the_per_round_plain_rounds(n, a, c, d, upto,
+                                                            filled_empty):
+    """The many-round issue's plain version (the zero runs, then the
+    rounds in order) gives the bytes of today's per-round plain rounds,
+    each prefix with its own zero runs, over arenas of other contents; the
+    rep takes it, and the CPU counts no launch."""
+    s = compile_method(1, AggregatorPattern(n, a, data_size=d, comm_size=c))
+    b = TorchShardBackend("cpu")
+    built = b._compiled(s)
+    assert built.fused is not None and len(built.rounds) > 1
+    send = b._send(s.pattern, 5, built)
+    k = len(built.rounds[:upto])
+    want, zero = _per_round_plain(built, send, k, -1)
+    launches, fused = dr.deliver_rows.launches, dr.deliver_rows.fused_rounds
+    got = torch.full_like(want, 7)
+    assert dr.deliver_rounds(send, got, built.fused, k, zero) is got
+    assert torch.equal(got, want)
+    got = torch.full_like(want, 9)
+    dr.rounds_launcher(built.fused, k, zero, send_shape=send.shape,
+                       recv_shape=got.shape, dtype=send.dtype)(send, got)
+    assert torch.equal(got, want)
+    assert torch.equal(built.rep(send, upto), want)
+    assert (dr.deliver_rows.launches, dr.deliver_rows.fused_rounds) == (
+        launches, fused)
+
+
+def test_a_row_written_in_two_rounds_keeps_the_later_rounds_bytes():
+    """Round 0 writes rows 2 and 3, round 1 writes row 2 again from
+    another send row: row 2 holds round 1's bytes, and the zero runs are
+    zeroed."""
+    send = torch.arange(4 * 3, dtype=torch.int32).reshape(4, 3) + 1
+    tabs = dr.round_tables([(np.array([0, 1]), np.array([2, 3])),
+                            (np.array([3]), np.array([2]))],
+                           F=5, Fs=4, device="cpu")
+    zero = dr.zero_runs([(0, 2), (4, 5)], "cpu")
+    recv = dr.deliver_rounds(send, torch.full((5, 3), -1, dtype=torch.int32),
+                             tabs, zero=zero)
+    assert recv[2].tolist() == send[3].tolist()
+    assert recv[3].tolist() == send[1].tolist()
+    assert recv[[0, 1, 4]].eq(0).all()
+    first = dr.deliver_rounds(send, torch.full((5, 3), -1, dtype=torch.int32),
+                              tabs, 1, zero)
+    assert first[2].tolist() == send[0].tolist()
+
+
+def test_round_tables_are_csr_views_of_one_upload():
+    """``round_ptr`` is the prefix sum of the rounds' row counts; each
+    round's tables are views of the concatenated tensors, so no round is
+    held twice; ``widest`` is the running maximum of the counts."""
+    pairs = [(np.array([3, -1, 1]), np.array([0, 9, 4])),
+             (np.array([], dtype=np.int64), np.array([], dtype=np.int64)),
+             (np.array([2, 0, 1, 3]), np.array([5, 6, 7, 8]))]
+    tabs = dr.round_tables(pairs, F=10, Fs=4, device="cpu")
+    counts = [t.n_rows for t in tabs.rounds]
+    assert counts == [3, 0, 4]                  # the pad folded into one
+    assert list(tabs.round_ptr) == [0, 3, 3, 7]
+    assert tabs.ptr_dev.tolist() == [0, 3, 3, 7]
+    assert tabs.ptr_dev.dtype == torch.int32
+    assert list(tabs.widest) == [0, 3, 3, 4]
+    assert (tabs.n_rounds, tabs.send_rows, tabs.recv_rows) == (3, 4, 10)
+    base = tabs.src_dev.untyped_storage().data_ptr()
+    for k, t in enumerate(tabs.rounds):
+        a, b = tabs.round_ptr[k], tabs.round_ptr[k + 1]
+        assert t.src_dev.untyped_storage().data_ptr() == base
+        assert torch.equal(t.src_dev, tabs.src_dev[a:b])
+        assert torch.equal(t.dst_dev, tabs.dst_dev[a:b])
+        one = dr.row_tables(*pairs[k], F=10, Fs=4, device="cpu")
+        assert (t.src.tolist(), t.dst.tolist()) == (one.src.tolist(),
+                                                     one.dst.tolist())
+    assert tabs.sync.tolist() == [0, 0, 0, 0]
+
+
+def test_built_rounds_share_the_one_launchs_tables():
+    """A one-device build uploads its rounds once: every round's tables
+    are views of ``fused``'s, whose offsets count the rounds' rows."""
+    s = compile_method(1, AggregatorPattern(64, 8, data_size=16,
+                                            comm_size=2))
+    built = TorchShardBackend("cpu")._compiled(s)
+    tabs = built.fused
+    assert np.diff(tabs.round_ptr).tolist() == [
+        t.rows.n_rows for (_r, t, _nb) in built.rounds]
+    for k, (_r, t, _nb) in enumerate(built.rounds):
+        assert t.rows is tabs.rounds[k]
+        assert (t.rows.src_dev.untyped_storage().data_ptr()
+                == tabs.src_dev.untyped_storage().data_ptr())
+
+
+def test_many_round_issue_refuses_by_name():
+    send = torch.zeros((4, 3), dtype=torch.int32)
+    tabs = dr.round_tables([(np.array([0]), np.array([1])),
+                            (np.array([3]), np.array([2]))],
+                           F=5, Fs=4, device="cpu")
+    recv = torch.zeros((5, 3), dtype=torch.int32)
+    for n in (0, 3):
+        with pytest.raises(ValueError, match=f"{n} rounds of a rep of 2"):
+            dr.deliver_rounds(send, recv, tabs, n)
+    with pytest.raises(ValueError, match="outside send"):
+        dr.deliver_rounds(send[:3], recv, tabs)
+    with pytest.raises(ValueError, match="zero run ends past"):
+        dr.deliver_rounds(send, recv, tabs, zero=dr.zero_runs([(4, 6)],
+                                                              "cpu"))
+    with pytest.raises(ValueError, match="deliver_rows"):
+        dr.deliver_rounds(send, recv.to(torch.int64), tabs)
+
+
+def test_check_fence_raises_the_record_and_clears_it():
+    tabs = dr.round_tables([(np.array([0]), np.array([1]))] * 2, F=2, Fs=1,
+                           device="cpu")
+    dr.check_fence(tabs)
+    tabs.sync[1:] = torch.tensor([8, 3, 41], dtype=torch.int32)
+    with pytest.raises(dr.DeliverFenceError,
+                       match="CTA 7 waited .* after round 3 .41 arrivals"):
+        dr.check_fence(tabs)
+    assert tabs.sync.tolist() == [0, 0, 0, 0]
+    dr.check_fence(tabs)

@@ -1291,25 +1291,33 @@ def test_deliver_rows_rep_equals_the_cpu_at_every_prefix(cuda, method, n, a,
     """Every prefix of the rounds (and the whole rep): the card's flat
     receive arena, trash row included, equals the CPU's rep (the same
     tables and zero runs through the kernel's plain version); one launch
-    a round, none of ATen's index kernels. Rows of 2048 and 256 bytes
-    take 16-byte lanes, of 100 bytes 4-byte lanes, of 6 bytes 1-byte
-    lanes."""
+    for a prefix of more than one round and no barrier token (its rounds
+    counted in ``fused_rounds``), else one launch a round, none of ATen's
+    index kernels. Rows of 2048 and 256 bytes take 16-byte lanes, of 100
+    bytes 4-byte lanes, of 6 bytes 1-byte lanes."""
     from tpu_aggcomm_torch.backends.deliver_rows import deliver_rows
     s = compile_method(method, AggregatorPattern(n, a, data_size=d,
                                                  comm_size=c),
                        barrier_type=bt)
     bg, bc, sg, sc = _shard_builds(s, cuda)
     R = len(bg.rounds)
+    assert (bg.fused is not None) == (
+        R > 1 and not any(nb for (_r, _t, nb) in bg.rounds))
     nbytes = bg.F * sg.shape[1] * sg.element_size()
     for upto in [*range(R + 1), None]:
         _poison(nbytes, cuda)
         before = deliver_rows.launches
+        rounds = deliver_rows.fused_rounds
         got = bg.rep(sg, upto)
         torch.cuda.synchronize()
         k = R if upto is None else upto
-        assert deliver_rows.launches - before == max(k, 1)
+        one = bg.fused is not None and k > 1
+        assert deliver_rows.launches - before == (1 if one else max(k, 1))
+        assert deliver_rows.fused_rounds - rounds == (k if one else 0)
         np.testing.assert_array_equal(to_reference(got),
                                       to_reference(bc.rep(sc, upto)))
+    if bg.fused is not None:
+        assert bg.fused.sync.tolist() == [0, 0, 0, 0]
 
 
 @pytest.mark.parametrize("spec", ["deadlink:5>3", "deadlink:9>0",
@@ -1335,14 +1343,17 @@ def test_deliver_rows_faulted_rep_equals_the_cpu(cuda, spec):
 @pytest.mark.parametrize("iters", [5, 53])
 def test_deliver_rows_graph_chain_equals_the_eager_chain(cuda, iters):
     """torch_shard's chain as CUDA graph replays equals the same chain run
-    eagerly on the card; the counter counts a launch a round of every
-    replayed rep (and of the warm-up rep)."""
+    eagerly on the card; the README's 11 barrier-free rounds are one
+    launch a rep, so the counters count one launch and 11 rounds of every
+    replayed rep (and of the warm-up rep); the fence's counter is back at
+    0 after every replay, with no memset in the graph."""
     from tpu_aggcomm_torch.backends.deliver_rows import deliver_rows
     from tpu_aggcomm_torch.parallel import group_sum
     s = compile_method(1, AggregatorPattern(32, 14, data_size=2048,
                                             comm_size=3))
     bg, _bc, sg, _sc = _shard_builds(s, cuda)
     F, R = bg.F, len(bg.rounds)
+    assert R == 11 and bg.fused is not None
 
     def step(carry, r):
         recv = bg.rep(carry)
@@ -1353,10 +1364,13 @@ def test_deliver_rows_graph_chain_equals_the_eager_chain(cuda, iters):
     make_chain = bg.make_chain()
     for first in (True, False):
         before = deliver_rows.launches
+        rounds = deliver_rows.fused_rounds
         got = make_chain(iters)(sg)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
-        assert deliver_rows.launches - before == (iters + first) * R
+        assert deliver_rows.launches - before == iters + first
+        assert deliver_rows.fused_rounds - rounds == (iters + first) * R
+        assert bg.fused.sync.tolist() == [0, 0, 0, 0]
     assert not torch.equal(got, sg)
 
 
@@ -1378,3 +1392,150 @@ def test_deliver_rows_arena_past_four_gigabytes(cuda):
     want[torch.as_tensor(sc.reshape(-1), device=cuda).long()] = send[
         torch.as_tensor(np.maximum(pk, 0).reshape(-1), device=cuda).long()]
     assert torch.equal(got, want)
+
+
+# The many-round launch (csrc/deliver_rows.cu, aggcomm_deliver_rounds): a
+# one-device rep of more than one barrier-free round in one cooperative
+# launch, its rounds fenced inside the kernel.
+
+@pytest.mark.parametrize("n,a,c,d", [
+    (16384, 256, 64, 256),          # the Theta script's -c 64: 256 rounds
+    (32, 14, 3, 2048),              # the README shape: 11 rounds
+])
+def test_deliver_rounds_equals_the_per_round_launches(cuda, n, a, c, d):
+    """The rep's one launch, into an arena the allocator hands back as
+    0xFF, equals the same rounds as one launch a round and the plain
+    version on the card, byte for byte; the counters add one launch and R
+    rounds; the fence's counter is back at 0 and its error record
+    empty."""
+    from tpu_aggcomm_torch.backends import deliver_rows as dr
+    from tpu_aggcomm_torch.backends.torch_shard import TorchShardBackend
+    s = compile_method(1, AggregatorPattern(n, a, data_size=d, comm_size=c))
+    b = TorchShardBackend(cuda)
+    built = b._compiled(s)
+    R, tabs = len(built.rounds), built.fused
+    assert R > 1 and tabs is not None
+    send = b._send(s.pattern, 4, built)
+    nbytes = built.F * send.shape[1] * send.element_size()
+    _poison(nbytes, cuda)
+    launches, rounds = dr.deliver_rows.launches, dr.deliver_rows.fused_rounds
+    got = built.rep(send)
+    torch.cuda.synchronize()
+    assert dr.deliver_rows.launches - launches == 1
+    assert dr.deliver_rows.fused_rounds - rounds == R
+    assert tabs.sync.tolist() == [0, 0, 0, 0]
+    _poison(nbytes, cuda)
+    per = torch.empty_like(got)
+    issue = dr.arena_launcher(send, per)
+    for i, (_r, t, _nb) in enumerate(built.rounds):
+        issue(t.rows, built.zero if i == 0 else None)
+    torch.cuda.synchronize()
+    assert dr.deliver_rows.launches - launches == 1 + R
+    assert torch.equal(got, per)
+    del per
+    plain = dr.deliver_rounds_plain(send, torch.full_like(got, -1), tabs, R,
+                                    built.zero)
+    assert torch.equal(got, plain)
+
+
+def _twice_written(R: int, rows: int, d: int, cuda):
+    """R rounds, each writing the same ``rows`` receive rows (a
+    permutation a round) from its own block of send rows, and a send of
+    distinct bytes."""
+    rng = np.random.default_rng(R * rows + d)
+    pairs = [(k * rows + np.arange(rows), rng.permutation(rows))
+             for k in range(R)]
+    send = torch.randint(0, 255, (R * rows, d), dtype=torch.uint8,
+                         device=cuda)
+    if d % 4 == 0:
+        send = send.view(torch.int32)
+    return pairs, send
+
+
+@pytest.mark.parametrize("d", [2048, 64, 6])
+def test_deliver_rounds_keeps_the_later_rounds_bytes(cuda, d):
+    """Every row written in each of 8 rounds, by CTAs all over the card,
+    keeps the last round's bytes (and a prefix its last round's): rows of
+    a tile or more, narrower rows and byte lanes."""
+    from tpu_aggcomm_torch.backends import deliver_rows as dr
+    R, rows = 8, 20000
+    pairs, send = _twice_written(R, rows, d, cuda)
+    tabs = dr.round_tables(pairs, F=rows + 1, Fs=R * rows, device=cuda)
+    zero = dr.zero_runs([(rows, rows + 1)], cuda)
+    for k in (R, 3):
+        recv = torch.full((rows + 1, send.shape[1]), -1, dtype=send.dtype,
+                          device=cuda)
+        dr.deliver_rounds(send, recv, tabs, k, zero)
+        want = torch.zeros_like(recv)
+        src, dst = pairs[k - 1]
+        want[torch.as_tensor(dst, device=cuda)] = send[
+            torch.as_tensor(src, device=cuda)]
+        assert torch.equal(recv, want), k
+    dr.check_fence(tabs)
+    assert tabs.sync.tolist() == [0, 0, 0, 0]
+
+
+def test_deliver_rounds_stamps_order_every_fence(cuda):
+    """From the stamps: no copying CTA leaves fence k before every copying
+    CTA has finished round k's copies, each CTA's stamps rise, and the
+    launch's plan has at least as many CTAs as the stamps name."""
+    from tpu_aggcomm_torch.backends import deliver_rows as dr
+    R, rows, d = 6, 40000, 2048
+    pairs, send = _twice_written(R, rows, d, cuda)
+    tabs = dr.round_tables(pairs, F=rows + 1, Fs=R * rows, device=cuda)
+    recv = torch.empty((rows + 1, send.shape[1]), dtype=send.dtype,
+                       device=cuda)
+    plan = dr.rounds_plan(send, recv, tabs)
+    assert plan["copy_ctas"] <= plan["grid"] and plan["lane_bytes"] == 16
+    stamps = torch.zeros(plan["grid"] * (2 + 2 * R), dtype=torch.int64,
+                         device=cuda)
+    with pytest.raises(ValueError, match="stamps"):
+        dr.deliver_rounds(send, recv, tabs, stamps=stamps[:-1])
+    dr.deliver_rounds(send, recv, tabs, stamps=stamps)
+    torch.cuda.synchronize()
+    st = stamps.view(plan["grid"], 2 + 2 * R)[:plan["copy_ctas"]].cpu()
+    assert (st[:, 1:] >= st[:, :-1]).all()
+    copied, fenced = st[:, 1:2 * R:2], st[:, 2:2 * R + 1:2]
+    for k in range(R - 1):
+        assert fenced[:, k].min() >= copied[:, k].max(), k
+    src, dst = pairs[-1]
+    assert torch.equal(recv[torch.as_tensor(dst, device=cuda)],
+                       send[torch.as_tensor(src, device=cuda)])
+    assert tabs.sync.tolist() == [0, 0, 0, 0]
+
+
+def test_deliver_rounds_after_a_fence_timeout_writes_nothing(cuda):
+    """Fence words as a timed-out launch leaves them (its counter where
+    the CTAs stood, the error record set): every later launch on them,
+    checked or bound, writes nothing, neither rows nor zero runs, and
+    counts as launched; check_fence raises and clears the words, and the
+    next launch delivers every round."""
+    from tpu_aggcomm_torch.backends import deliver_rows as dr
+    R, rows, d = 4, 3000, 64
+    pairs, send = _twice_written(R, rows, d, cuda)
+    tabs = dr.round_tables(pairs, F=rows + 1, Fs=R * rows, device=cuda)
+    zero = dr.zero_runs([(rows, rows + 1)], cuda)
+    shape = (rows + 1, send.shape[1])
+    bound = dr.rounds_launcher(tabs, R, zero, send_shape=send.shape,
+                               recv_shape=shape, dtype=send.dtype)
+    failed = torch.tensor([5, 3, 1, 4], dtype=torch.int32)
+    for issue in (lambda recv: dr.deliver_rounds(send, recv, tabs, R, zero),
+                  lambda recv: bound(send, recv)):
+        tabs.sync.copy_(failed)
+        recv = torch.full(shape, -1, dtype=send.dtype, device=cuda)
+        launches = dr.deliver_rows.launches
+        issue(recv)
+        torch.cuda.synchronize()
+        assert dr.deliver_rows.launches - launches == 1
+        assert (recv == -1).all()
+        assert tabs.sync.cpu().tolist() == failed.tolist()
+        with pytest.raises(dr.DeliverFenceError, match="CTA 2"):
+            dr.check_fence(tabs)
+        assert tabs.sync.tolist() == [0, 0, 0, 0]
+    bound(send, recv)
+    want = torch.zeros_like(recv)
+    src, dst = pairs[-1]
+    want[torch.as_tensor(dst, device=cuda)] = send[
+        torch.as_tensor(src, device=cuda)]
+    assert torch.equal(recv, want)
+    dr.check_fence(tabs)

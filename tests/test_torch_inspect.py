@@ -176,7 +176,7 @@ def test_roofline_rows_are_the_h100_models(capsys):
         f"  torch_shard(ndev=1): {sb.total() / 1e6:.2f} MB a rep (4 rounds) "
         f"-> floor {sb.floor_seconds() * 1e6:.3f} us/rep\n"
         f"    gather 6144 B, scatter 6144 B, zero 256 B, intermediate "
-        f"0 B, index 204 B, barrier 0 B, pad 0 B\n"
+        f"0 B, index 224 B, barrier 0 B, pad 0 B\n"
         f"  torch_shard --chained: {s_chained / 1e6:.2f} MB a rep with the "
         f"token and XOR -> floor "
         f"{roofline.floor_seconds(s_chained) * 1e6:.3f} us/rep\n")

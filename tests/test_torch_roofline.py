@@ -146,15 +146,17 @@ def _plain_surplus(built, d: int) -> int:
     row (``rep_bytes(..., lowering="torch_shard")``) over ``built``'s
     rounds: the gathered rows' temporary, written and read; the two int32
     tables of each entry read, written as int64 and read as indices, in
-    place of the kernel's two int32 reads; less the zero runs' tables,
-    which only the kernel reads (the plain version zeroes from the host
-    runs)."""
+    place of the kernel's two int32 reads; less the zero runs' tables and
+    a many-round launch's round offsets, which only the kernel reads (the
+    plain version zeroes from the host runs and walks the rounds on the
+    host)."""
     entries = sum(tab.rows.n_rows for (_r, tab, _nb) in built.rounds)
     temporary = 2 * entries * d
     widened_tables = 2 * (4 + 8 + 8) * entries - 2 * 4 * entries
     runs = len(built.zero.runs)
     zero_tables = 4 * (2 * runs + 1) if runs else 0
-    return temporary + widened_tables - zero_tables
+    offsets = 4 * (len(built.rounds) + 1) if built.fused is not None else 0
+    return temporary + widened_tables - zero_tables - offsets
 
 
 @pytest.mark.parametrize("m,d", CASES)

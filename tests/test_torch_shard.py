@@ -19,6 +19,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 jax = pytest.importorskip("jax")
 
@@ -216,6 +217,51 @@ def test_shard_explicit_ranks_per_device(pool):
     _assert_parity(res, ref_recv, ref_flat)
     err = pool().call(2, "shard_refusal", sched=sp, rpd=5)
     assert err[0][0] == "ValueError" and "must divide" in err[0][1]
+
+
+@pytest.mark.parametrize("method,n,a,c,bt,issues", [
+    (1, 32, 14, 999_999_999, 0, "one round"),
+    (13, 32, 14, 2, 2, "a launch a round"),     # barrier tokens
+    (1, 32, 14, 3, 0, "one launch"),
+    (1, 100, 7, 3, 0, "one launch"),            # scan pads
+    (2, 32, 14, 4, 0, "one launch"),            # many-to-all
+])
+def test_one_device_rep_issues_by_rounds_and_tokens(method, n, a, c, bt,
+                                                    issues):
+    """On one device: one round takes the one-round issue; rounds with
+    barrier tokens take one issue a round; more than one round and no
+    token take ONE many-round issue, whose span names the rounds, their
+    edges and the zeroed rows. Read from the rep's ``rep.issue`` spans."""
+    from tpu_aggcomm_torch.obs import trace
+    s = compile_method(method, AggregatorPattern(n, a, data_size=8,
+                                                 comm_size=c),
+                       barrier_type=bt)
+    b = TorchShardBackend("cpu")
+    built = b._compiled(s)
+    R = len(built.rounds)
+    tokens = any(nb for (_r, _t, nb) in built.rounds)
+    send = b._send(s.pattern, 1, built)
+    want = built.rep(send)
+    rec = trace.enable(manifest=False)
+    try:
+        assert torch.equal(built.rep(send), want)
+    finally:
+        trace.disable()
+    spans = [e for e in rec.events if e.get("name") == "rep.issue"]
+    if issues == "one round":
+        assert R == 1 and built.fused is None
+        assert [e["args"].get("round") for e in spans] == [
+            built.rounds[0][0]]
+    elif issues == "a launch a round":
+        assert R > 1 and tokens and built.fused is None
+        assert [e["args"]["round"] for e in spans] == [
+            r for (r, _t, _nb) in built.rounds]
+    else:
+        assert R > 1 and not tokens and built.fused is not None
+        assert [e["args"] for e in spans] == [{
+            "rounds": R, "edges": sum(t.edges for (_r, t, _nb)
+                                      in built.rounds),
+            "zero_rows": built.zero.rows}]
 
 
 def test_block_tables_pad_and_order():

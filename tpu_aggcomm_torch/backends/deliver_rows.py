@@ -1,4 +1,4 @@
-"""One single-device round of ``torch_shard``: kernel ``csrc/deliver_rows.cu``.
+"""``torch_shard``'s rounds on one device: kernel ``csrc/deliver_rows.cu``.
 
 Replaces the single-device round of ``tpu_aggcomm/backends/jax_shard.py``
 (``_apply_block_round`` with ``single_dev=True``:
@@ -6,15 +6,17 @@ Replaces the single-device round of ``tpu_aggcomm/backends/jax_shard.py``
 port had run it as three ATen kernels: a zero fill of the whole receive
 arena, a gather of every send row into a temporary as large as the
 payload, and an ``index_put_``. The kernel writes each receive row a
-round writes once, straight from its send row, in one launch a round;
-the rep's first launch also zeroes the rows the rep's rounds never
-write, so the rep allocates its arena with ``torch.empty``.
+round writes once, straight from its send row; the rep's first launch
+also zeroes the rows the rep's rounds never write, so the rep allocates
+its arena with ``torch.empty``.
 
 - :func:`row_tables`: a round's entries as the kernel reads them, from
   the reference's pack and scatter tables of one device. Pads (pack -1,
   scatter the trash row ``F - 1``) copy send row 0 into the trash row,
   as the reference's single-device path does; all of a round's pads copy
-  the same bytes, so they are one entry.
+  the same bytes, so they are one entry. :func:`round_tables`: a rep's
+  rounds uploaded once, in CSR form, each round's :class:`RowTables` a
+  view of it.
 - :func:`unwritten_runs`: the host half of the zeroing. The rows that no
   entry of a rep's rounds writes, as runs of contiguous rows, and row 0
   as well where a barrier token reads it before a round writes it.
@@ -27,6 +29,17 @@ write, so the rep allocates its arena with ``torch.empty``.
   issuer reads the rep's two arenas and the stream once, so each of the
   rep's rounds is one ctypes call. CPU tensors take
   :func:`deliver_rows_plain`, the kernel's contract in plain torch.
+- :func:`deliver_rounds`: the first ``n`` rounds of a :class:`RoundTables`
+  in ONE cooperative launch, each round fenced from the next inside the
+  kernel (a rep of many rounds with no barrier token between them). It
+  counts one launch in ``deliver_rows.launches`` and its rounds in
+  ``deliver_rows.fused_rounds``; CPU tensors take
+  :func:`deliver_rounds_plain`, the rounds in order through
+  :func:`deliver_rows_plain`. :func:`rounds_launcher` binds it once to a
+  rep's tables and arena shapes: on the card a rep is then one C call.
+  The call stays asynchronous: :func:`check_fence` raises a fence
+  timeout after the device has run it, and until it has, every later
+  launch on the same tables writes nothing.
 """
 
 from __future__ import annotations
@@ -38,12 +51,21 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-__all__ = ["RowTables", "ZeroRuns", "row_tables", "unwritten_runs",
-           "zero_runs", "deliver_rows", "deliver_rows_plain",
-           "arena_launcher"]
+__all__ = ["RowTables", "RoundTables", "ZeroRuns", "DeliverFenceError",
+           "row_tables", "round_tables", "unwritten_runs", "zero_runs",
+           "deliver_rows", "deliver_rows_plain", "arena_launcher",
+           "deliver_rounds", "deliver_rounds_plain", "rounds_launcher",
+           "rounds_plan", "check_fence"]
 
 #: rows, table entries and tasks of one launch stay below this (int32)
 INT32_LIMIT = 2 ** 31
+#: how long one wait of a CTA at a round fence may last
+TIMEOUT_S = 10.0
+
+
+class DeliverFenceError(RuntimeError):
+    """A CTA of the many-round launch waited past the timeout at a round
+    fence; the rep did not complete."""
 
 
 def _check_rows(what: str, rows: int) -> None:
@@ -85,11 +107,9 @@ class ZeroRuns:
     args: tuple
 
 
-def row_tables(pack: np.ndarray, scat: np.ndarray, *, F: int, Fs: int,
-               device) -> RowTables:
-    """A round's :class:`RowTables` from one device's flat pack (send
-    rows, -1 for a pad) and scatter (receive rows, ``F - 1`` for a pad)
-    tables of ``Fs`` send and ``F`` receive rows."""
+def _host_rows(pack: np.ndarray, scat: np.ndarray, *, F: int, Fs: int
+               ) -> tuple[np.ndarray, np.ndarray]:
+    """A round's host int32 ``(src, dst)`` entries (:func:`row_tables`)."""
     _check_rows("send", Fs)
     _check_rows("receive", F)
     pack = np.asarray(pack).reshape(-1)
@@ -101,14 +121,79 @@ def row_tables(pack: np.ndarray, scat: np.ndarray, *, F: int, Fs: int,
         dst = np.append(dst, F - 1)
     if len(dst) and min(src.min(), dst.min()) < 0:
         raise ValueError("deliver_rows: a table row is negative")
-    src = np.ascontiguousarray(src, dtype=np.int32)
-    dst = np.ascontiguousarray(dst, dtype=np.int32)
-    src_dev = torch.from_numpy(src).to(device)
-    dst_dev = torch.from_numpy(dst).to(device)
+    return (np.ascontiguousarray(src, dtype=np.int32),
+            np.ascontiguousarray(dst, dtype=np.int32))
+
+
+def _row_tables(src: np.ndarray, dst: np.ndarray, src_dev: torch.Tensor,
+                dst_dev: torch.Tensor) -> RowTables:
     return RowTables(src=src, dst=dst, src_dev=src_dev, dst_dev=dst_dev,
                      args=(src_dev.data_ptr(), dst_dev.data_ptr(), len(dst)),
                      send_rows=int(src.max()) + 1 if len(src) else 0,
                      recv_rows=int(dst.max()) + 1 if len(dst) else 0)
+
+
+def row_tables(pack: np.ndarray, scat: np.ndarray, *, F: int, Fs: int,
+               device) -> RowTables:
+    """A round's :class:`RowTables` from one device's flat pack (send
+    rows, -1 for a pad) and scatter (receive rows, ``F - 1`` for a pad)
+    tables of ``Fs`` send and ``F`` receive rows."""
+    src, dst = _host_rows(pack, scat, F=F, Fs=Fs)
+    return _row_tables(src, dst, torch.from_numpy(src).to(device),
+                       torch.from_numpy(dst).to(device))
+
+
+@dataclass(frozen=True)
+class RoundTables:
+    """A rep's rounds in CSR form: round ``k`` is entries
+    ``round_ptr[k]`` to ``round_ptr[k + 1]`` of ``src_dev`` and
+    ``dst_dev`` (int32, on the device; ``ptr_dev`` the offsets there).
+    ``rounds`` holds each round's :class:`RowTables`, views of the same
+    device tensors, so a round's tables are not kept twice.
+    ``widest[k]`` is the most entries among the first ``k`` rounds.
+    ``sync`` is the fence's four int32 words on the device: its counter,
+    0 between launches, and its error record (CTA + 1, round, arrivals
+    seen), zero unless a wait timed out."""
+
+    round_ptr: tuple
+    ptr_dev: torch.Tensor
+    src_dev: torch.Tensor
+    dst_dev: torch.Tensor
+    rounds: tuple
+    widest: tuple
+    sync: torch.Tensor
+    send_rows: int
+    recv_rows: int
+
+    @property
+    def n_rounds(self) -> int:
+        return len(self.rounds)
+
+
+def round_tables(pairs, *, F: int, Fs: int, device) -> RoundTables:
+    """:class:`RoundTables` of a rep's rounds, each a ``(pack, scat)``
+    pair as :func:`row_tables` takes it: the entries of every round
+    concatenated and uploaded once."""
+    host = [_host_rows(pk, sc, F=F, Fs=Fs) for pk, sc in pairs]
+    counts = [len(dst) for _src, dst in host]
+    ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    _check_rows("table", int(ptr[-1]))
+    none = np.zeros(0, dtype=np.int32)
+    src_dev, dst_dev = (
+        torch.from_numpy(np.concatenate([none, *(h[j] for h in host)])
+                         ).to(device) for j in (0, 1))
+    rounds = tuple(
+        _row_tables(src, dst, src_dev[a:b], dst_dev[a:b])
+        for (src, dst), a, b in zip(host, ptr[:-1].tolist(),
+                                    ptr[1:].tolist()))
+    return RoundTables(
+        round_ptr=tuple(ptr.tolist()),
+        ptr_dev=torch.from_numpy(ptr.astype(np.int32)).to(device),
+        src_dev=src_dev, dst_dev=dst_dev, rounds=rounds,
+        widest=tuple(np.maximum.accumulate([0] + counts).tolist()),
+        sync=torch.zeros(4, dtype=torch.int32, device=device),
+        send_rows=max((t.send_rows for t in rounds), default=0),
+        recv_rows=max((t.recv_rows for t in rounds), default=0))
 
 
 def unwritten_runs(F: int, rounds) -> list:
@@ -162,16 +247,36 @@ def deliver_rows_plain(send: torch.Tensor, recv: torch.Tensor,
     return recv
 
 
+def deliver_rounds_plain(send: torch.Tensor, recv: torch.Tensor,
+                         tabs: RoundTables, n_rounds: int,
+                         zero: ZeroRuns | None = None) -> torch.Tensor:
+    """The plain version of :func:`deliver_rounds`: the zero runs
+    zeroed, then the first ``n_rounds`` rounds in order, each through
+    :func:`deliver_rows_plain`. Updates ``recv`` in place and returns
+    it."""
+    deliver_rows_plain(send, recv, None, zero)
+    for t in tabs.rounds[:n_rounds]:
+        deliver_rows_plain(send, recv, t)
+    return recv
+
+
 @functools.cache
 def _c_lib():
-    """The kernel's C entry point, built and loaded at first use."""
+    """The kernel's C entry points, built and loaded at first use: one
+    round, the many-round launch and its plan."""
     from tpu_aggcomm_torch.csrc.build import load
     lib = load()
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn = lib.aggcomm_deliver_rows
     fn.argtypes = [p, p, p, p, ll, p, p, i, ll, ll, p, i]
     fn.restype = i
-    return fn
+    rounds = lib.aggcomm_deliver_rounds
+    rounds.argtypes = [p, p, p, p, p]
+    rounds.restype = i
+    plan = lib.aggcomm_deliver_rounds_plan
+    plan.argtypes = [p, p, p, p]
+    plan.restype = i
+    return fn, rounds, plan
 
 
 def _check_arenas(send: torch.Tensor, recv: torch.Tensor) -> None:
@@ -236,9 +341,8 @@ def arena_launcher(send: torch.Tensor, recv: torch.Tensor):
             deliver_rows_plain(send, recv, tabs, zero)
 
         return plain
-    fn = _c_lib()
-    dev = device.index if device.index is not None \
-        else torch.cuda.current_device()
+    fn = _c_lib()[0]
+    dev = _dev_index(device)
     head = (send.data_ptr(), recv.data_ptr())
     tail = (recv.shape[1] * recv.element_size(),
             torch.cuda.current_stream(dev).cuda_stream, dev)
@@ -259,3 +363,175 @@ def arena_launcher(send: torch.Tensor, recv: torch.Tensor):
 
 
 deliver_rows.launches = 0
+deliver_rows.fused_rounds = 0
+
+
+def _dev_index(device) -> int:
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
+
+
+def _check_count(tabs: RoundTables, n_rounds: int) -> None:
+    if not 1 <= n_rounds <= tabs.n_rounds:
+        raise ValueError(f"deliver_rounds: {n_rounds} rounds of a rep of "
+                         f"{tabs.n_rounds}")
+
+
+class RoundsBlock(ctypes.Structure):
+    """``RoundsBlock`` of ``csrc/deliver_rows.cu``, field for field: what
+    the many-round launch reads that a prefix of one rep's tables fixes."""
+
+    _fields_ = [("round_ptr", ctypes.c_void_p), ("src_row", ctypes.c_void_p),
+                ("dst_row", ctypes.c_void_p), ("zero_start", ctypes.c_void_p),
+                ("zero_ptr", ctypes.c_void_p), ("sync", ctypes.c_void_p),
+                ("timeout_ns", ctypes.c_ulonglong),
+                ("max_round_rows", ctypes.c_longlong),
+                ("zero_rows", ctypes.c_longlong),
+                ("row_bytes", ctypes.c_longlong), ("n_rounds", ctypes.c_int),
+                ("n_zero_runs", ctypes.c_int), ("device", ctypes.c_int)]
+
+
+def _rounds_block(tabs: RoundTables, n_rounds: int, zero: ZeroRuns,
+                  row_bytes: int, index: int) -> RoundsBlock:
+    """The first ``n_rounds`` rounds of ``tabs`` and ``zero``, rows of
+    ``row_bytes``, on device ``index``, as the C entries read them."""
+    return RoundsBlock(
+        tabs.ptr_dev.data_ptr(), tabs.src_dev.data_ptr(),
+        tabs.dst_dev.data_ptr(), *zero.args[:2], tabs.sync.data_ptr(),
+        int(TIMEOUT_S * 1e9), tabs.widest[n_rounds], zero.rows, row_bytes,
+        n_rounds, zero.args[2], index)
+
+
+def _launched(rc: int, n_rounds: int) -> None:
+    """Raise on a failed many-round launch, else count it."""
+    if rc != 0:
+        raise RuntimeError(f"deliver_rounds kernel launch failed: "
+                           f"cudaError {rc}")
+    deliver_rows.launches += 1
+    deliver_rows.fused_rounds += n_rounds
+
+
+def deliver_rounds(send: torch.Tensor, recv: torch.Tensor,
+                   tabs: RoundTables, n_rounds: int | None = None,
+                   zero: ZeroRuns | None = None,
+                   stamps: torch.Tensor | None = None) -> torch.Tensor:
+    """The first ``n_rounds`` rounds of ``tabs`` (all by default) into
+    ``recv`` in place, in order, and the ``zero`` runs zeroed. For CUDA
+    tensors ONE cooperative launch on the current stream (none when there
+    is nothing to copy or zero), its rounds fenced from each other inside
+    the kernel, counted in ``deliver_rows.launches`` (1) and
+    ``deliver_rows.fused_rounds`` (``n_rounds``); ``stamps`` (int64,
+    ``grid * (2 + 2 * n_rounds)``, :func:`rounds_plan`'s grid) takes each
+    CTA's ``%globaltimer`` stamps: its start, after each round's copies,
+    after each fence and its end. For CPU tensors the plain version.
+    Returns ``recv``."""
+    zero = zero or NO_ZERO
+    n_rounds = tabs.n_rounds if n_rounds is None else n_rounds
+    _check_arenas(send, recv)
+    _check_count(tabs, n_rounds)
+    _check_tables(send.device, send.shape[0], recv.shape[0], tabs, zero)
+    if send.device.type == "cpu":
+        return deliver_rounds_plain(send, recv, tabs, n_rounds, zero)
+    if not (tabs.round_ptr[n_rounds] or zero.rows):
+        return recv
+    dev = _dev_index(send.device)
+    block = _rounds_block(tabs, n_rounds, zero,
+                          recv.shape[1] * recv.element_size(), dev)
+    if stamps is not None and (
+            stamps.dtype != torch.int64 or stamps.device != send.device
+            or not stamps.is_contiguous()
+            or stamps.numel() < (2 + 2 * n_rounds) * _plan(
+                block, send, recv)["grid"]):
+        raise ValueError("deliver_rounds: stamps must be a contiguous int64 "
+                         "tensor of grid * (2 + 2 * n_rounds) on the "
+                         "arenas' device")
+    _launched(_c_lib()[1](
+        ctypes.byref(block), send.data_ptr(), recv.data_ptr(),
+        None if stamps is None else stamps.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), n_rounds)
+    return recv
+
+
+def rounds_launcher(tabs: RoundTables, n_rounds: int, zero: ZeroRuns | None,
+                    *, send_shape: tuple, recv_shape: tuple,
+                    dtype: torch.dtype):
+    """``issue(send, recv)``: :func:`deliver_rounds` of the first
+    ``n_rounds`` rounds of ``tabs`` and ``zero``, bound once for arenas
+    of ``send_shape`` and ``recv_shape`` in ``dtype`` on the tables'
+    device (what a rep of many rounds issues). On the card the launch's
+    arguments are packed once into a :class:`RoundsBlock`, so a call on
+    such arenas, contiguous, is a key compare and one C call on
+    PyTorch's current stream; any other arenas take :func:`deliver_rounds`
+    with its checks. On the CPU every call is :func:`deliver_rounds`."""
+    zero = zero or NO_ZERO
+    device = tabs.src_dev.device
+
+    def checked(send: torch.Tensor, recv: torch.Tensor) -> None:
+        deliver_rounds(send, recv, tabs, n_rounds, zero)
+
+    if device.type == "cpu":
+        return checked
+    _check_count(tabs, n_rounds)
+    _check_tables(device, send_shape[0], recv_shape[0], tabs, zero)
+    send_shape, recv_shape = torch.Size(send_shape), torch.Size(recv_shape)
+    if send_shape[1:] != recv_shape[1:] or len(send_shape) != 2:
+        raise ValueError(f"deliver_rounds: send {tuple(send_shape)} and "
+                         f"recv {tuple(recv_shape)} must share their row")
+    index = _dev_index(device)
+    block = _rounds_block(tabs, n_rounds, zero,
+                          recv_shape[1] * dtype.itemsize, index)
+    ref, launch = ctypes.byref(block), _c_lib()[1]
+    stream = torch._C._cuda_getCurrentRawStream
+    empty = tabs.round_ptr[n_rounds] == 0 and zero.rows == 0
+
+    def issue(send: torch.Tensor, recv: torch.Tensor) -> None:
+        if not (send.shape == send_shape and recv.shape == recv_shape
+                and send.dtype is dtype and recv.dtype is dtype
+                and send.get_device() == index == recv.get_device()
+                and send.is_contiguous() and recv.is_contiguous()):
+            checked(send, recv)
+            return
+        if empty:
+            return
+        _launched(launch(ref, send.data_ptr(), recv.data_ptr(), None,
+                         stream(index)), n_rounds)
+
+    issue.block = block           # keeps the packed arguments alive
+    return issue
+
+
+def _plan(block: RoundsBlock, send: torch.Tensor, recv: torch.Tensor
+          ) -> dict:
+    out = (ctypes.c_int * 4)()
+    rc = _c_lib()[2](ctypes.byref(block), send.data_ptr(), recv.data_ptr(),
+                     out)
+    if rc != 0:
+        raise RuntimeError(f"deliver_rounds plan query failed: cudaError "
+                           f"{rc}")
+    return dict(grid=out[0], copy_ctas=out[1], threads=out[2],
+                lane_bytes=out[3])
+
+
+def rounds_plan(send: torch.Tensor, recv: torch.Tensor, tabs: RoundTables,
+                n_rounds: int | None = None,
+                zero: ZeroRuns | None = None) -> dict:
+    """What :func:`deliver_rounds` launches for these CUDA arenas:
+    ``grid``, ``copy_ctas`` (the CTAs that copy and fence; the rest
+    zero), ``threads`` a CTA and the lane width in bytes."""
+    n_rounds = tabs.n_rounds if n_rounds is None else n_rounds
+    return _plan(_rounds_block(tabs, n_rounds, zero or NO_ZERO,
+                               recv.shape[1] * recv.element_size(),
+                               _dev_index(send.device)), send, recv)
+
+
+def check_fence(tabs: RoundTables) -> None:
+    """Wait for the device and raise :class:`DeliverFenceError` if a CTA
+    of an earlier launch on these tables timed out at a round fence (the
+    words are cleared; until then every launch on them writes nothing)."""
+    cta1, rnd, got = tabs.sync[1:].tolist()
+    if cta1:
+        tabs.sync.zero_()
+        raise DeliverFenceError(
+            f"deliver_rounds: CTA {cta1 - 1} waited over {TIMEOUT_S} s at "
+            f"the fence after round {rnd} ({got} arrivals); the rep did "
+            f"not complete")

@@ -39,9 +39,12 @@ fit it in device memory. A round is then one row delivery
 (:mod:`~tpu_aggcomm_torch.backends.deliver_rows`: the kernel
 ``csrc/deliver_rows.cu`` on the card, its plain version on the CPU):
 every receive row the round writes is copied once from its send row, and
-the rep's first round zeroes the rows its rounds leave unwritten, so the
-receive arena is a ``torch.empty``. :func:`one_device_build` builds
-these rounds and zero runs from a schedule alone.
+the rep's first launch zeroes the rows its rounds leave unwritten, so the
+receive arena is a ``torch.empty``. A rep of more than one round and no
+barrier token is ONE launch, its rounds fenced inside the kernel
+(``deliver_rounds``); one round, or rounds with tokens between them,
+take one launch a round. :func:`one_device_build` builds these rounds
+and zero runs from a schedule alone.
 
 Deep barrier-free schedules (32 rounds or more) take the reference's
 padded-table form (every round at the widest round's width, pads into
@@ -89,9 +92,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tpu_aggcomm_torch.backends.deliver_rows import (RowTables, ZeroRuns,
+from tpu_aggcomm_torch.backends.deliver_rows import (RoundTables,
+                                                     RowTables, ZeroRuns,
                                                      arena_launcher,
-                                                     row_tables,
+                                                     check_fence,
+                                                     round_tables,
+                                                     rounds_launcher,
                                                      unwritten_runs,
                                                      zero_runs)
 from tpu_aggcomm_torch.backends.lanes import (lane_layout, lanes_to_bytes,
@@ -351,9 +357,12 @@ class _RoundTab:
 class _Built:
     """One schedule's build on this process: its mesh, layouts, per-round
     device tables, on one device the whole rep's zero runs (``zero``;
-    None under an exchange, whose arena is zeroed), and the rep/chain
-    constructors. ``idx`` is None for a process outside the mesh: it
-    holds no ranks and runs the same program over empty blocks."""
+    None under an exchange, whose arena is zeroed) and, for a rep of more
+    than one round and no barrier token, the rounds as one launch reads
+    them (``fused``; every round's tables are views of it), and the
+    rep/chain constructors. ``idx`` is None for a process outside the
+    mesh: it holds no ranks and runs the same program over empty
+    blocks."""
 
     ndev: int
     bsz: int
@@ -368,6 +377,7 @@ class _Built:
     send_base: np.ndarray | None = None
     rounds: list | None = None          # [(round id, _RoundTab, nbar)]
     zero: ZeroRuns | None = None
+    fused: RoundTables | None = None
     rep: object = None
     make_chain: object = None
 
@@ -427,15 +437,20 @@ def _scan_form(host: list, F: int) -> list:
     return out
 
 
-def _one_device_tab(built: _Built, pk, sc, device) -> _RoundTab:
-    """One round on one device: the row delivery's tables of the
-    reference's (1, 1, M) block tables (none outside the mesh)."""
-    edges = int((pk >= 0).sum())
-    if built.idx is None:
-        pk = sc = np.zeros(0, dtype=np.int32)
-    return _RoundTab(edges=edges, member=built.idx is not None,
-                     rows=row_tables(pk, sc, F=built.F, Fs=built.Fs,
-                                     device=device))
+def _one_device_rounds(built: _Built, host: list, device
+                       ) -> tuple[list, RoundTables]:
+    """``host``'s rounds on one device, ``[(round id, _RoundTab,
+    barriers)]``: each round the row delivery's tables of the reference's
+    (1, 1, M) block tables (none outside the mesh), views of one upload,
+    the :class:`RoundTables` returned beside them."""
+    member = built.idx is not None
+    empty = np.zeros(0, dtype=np.int32)
+    tabs = round_tables([(pk, sc) if member else (empty, empty)
+                         for (_r, pk, sc, _nb) in host],
+                        F=built.F, Fs=built.Fs, device=device)
+    return [(r, _RoundTab(edges=int((pk >= 0).sum()), member=member,
+                          rows=rows), nbar)
+            for (r, pk, _sc, nbar), rows in zip(host, tabs.rounds)], tabs
 
 
 def _zero_runs(F: int, rounds: list, device) -> ZeroRuns:
@@ -449,14 +464,18 @@ def one_device_build(schedule: Schedule, device, *, member: bool = True
                      ) -> _Built:
     """``schedule``'s build on one device, with no backend and no process
     group: its layouts, its rounds (each the row delivery's tables, in
-    the scan form where it applies) and the whole rep's zero runs. What
-    ``TorchShardBackend`` runs at one device and the roofline prices.
-    ``member=False`` is a process outside a one-device mesh: the same
-    rounds over a one-row arena and no rows."""
+    the scan form where it applies; all of them uploaded at once, each
+    round's a view) and the whole rep's zero runs; ``fused``, the rounds
+    in one launch's form, where there are more than one and no barrier
+    token. What ``TorchShardBackend`` runs at one device and the roofline
+    prices. ``member=False`` is a process outside a one-device mesh: the
+    same rounds over a one-row arena and no rows."""
     built, host = _host_layout(schedule, 1, 0 if member else None)
     with trace.span("tables.rounds"):
-        built.rounds = [(r, _one_device_tab(built, pk, sc, device), nbar)
-                        for (r, pk, sc, nbar) in _scan_form(host, built.F)]
+        built.rounds, tabs = _one_device_rounds(
+            built, _scan_form(host, built.F), device)
+        if len(host) > 1 and not any(nbar for (*_rest, nbar) in host):
+            built.fused = tabs
         built.zero = _zero_runs(built.F, built.rounds, device)
     return built
 
@@ -676,9 +695,7 @@ class TorchShardBackend:
 
     def _device_tab(self, built: _Built, pk, sc) -> _RoundTab:
         """One round's :class:`_RoundTab` on this process from the
-        reference's (ndev, ndev, M) block tables."""
-        if built.ndev == 1:
-            return _one_device_tab(built, pk, sc, self.device)
+        reference's (ndev, ndev, M) block tables, ndev >= 2."""
         _, dt, _w = lane_layout(built.data_size)
         if built.idx is None:
             pkl = scl = np.zeros(0, dtype=np.int64)
@@ -737,6 +754,9 @@ class TorchShardBackend:
         # exchange the arena is zeroed
         new_arena = torch.zeros if built.zero is None else torch.empty
         zeros = {len(rounds): built.zero}
+        fused, launchers = built.fused, {}
+        edges_upto = np.cumsum([0] + [tab.edges for (_r, tab, _nb) in rounds]
+                               ).tolist()
 
         def zero_of(upto):
             """The zero runs of the rep truncated to ``upto`` rounds,
@@ -746,6 +766,16 @@ class TorchShardBackend:
                 zeros[k] = _zero_runs(F, rounds[:k], dev)
             return zeros[k]
 
+        def launcher_of(k: int):
+            """The first ``k`` rounds as one launch, bound once for each
+            length."""
+            if k not in launchers:
+                zero = zero_of(k)
+                launchers[k] = (zero, rounds_launcher(
+                    fused, k, zero, send_shape=(built.Fs, w),
+                    recv_shape=(F, w), dtype=dt))
+            return launchers[k]
+
         def rep(flat_send, upto: int | None = None):
             """One whole rep on this device's shard: flat_send (Fs, w) ->
             recv (F, w); ``upto`` truncates to the first upto rounds (the
@@ -753,24 +783,33 @@ class TorchShardBackend:
             trace recorder is on, a ``rep`` span holding the receive
             arena's ``rep.arena``, then one ``rep.issue`` a round (its id
             and its edges across the mesh; on one device, the first also
-            the rows it zeroes)."""
+            the rows it zeroes), or, where the rep's rounds are one
+            launch, one ``rep.issue`` for all (``rounds``, their
+            ``edges`` and ``zero_rows``)."""
             with trace.span("rep"):
                 with trace.span("rep.arena"):
                     recv = new_arena((F, w), dtype=dt, device=dev)
-                issue = zero = None
-                if built.zero is not None:
-                    issue = arena_launcher(flat_send, recv)
-                    zero = zero_of(upto)
-                for (r, tab, nbar) in rounds[:upto]:
-                    args = {} if zero is None else {"zero_rows": zero.rows}
-                    with trace.span("rep.issue", round=r, edges=tab.edges,
-                                    **args):
-                        _apply_block_round(flat_send, recv, tab, nbar, F,
-                                           coll, zero, issue)
-                    zero = None
-                if zero is not None:            # no round: the zeroing
-                    with trace.span("rep.issue", zero_rows=zero.rows):
-                        issue(None, zero)
+                k = len(range(len(rounds))[:upto])
+                if fused is not None and k > 1:
+                    zero, issue = launcher_of(k)
+                    with trace.span("rep.issue", rounds=k,
+                                    edges=edges_upto[k], zero_rows=zero.rows):
+                        issue(flat_send, recv)
+                else:
+                    zero = None if built.zero is None else zero_of(upto)
+                    issue = (None if zero is None
+                             else arena_launcher(flat_send, recv))
+                    for (r, tab, nbar) in rounds[:upto]:
+                        args = {} if zero is None else {"zero_rows":
+                                                        zero.rows}
+                        with trace.span("rep.issue", round=r,
+                                        edges=tab.edges, **args):
+                            _apply_block_round(flat_send, recv, tab, nbar, F,
+                                               coll, zero, issue)
+                        zero = None
+                    if zero is not None:        # no round: the zeroing
+                        with trace.span("rep.issue", zero_rows=zero.rows):
+                            issue(None, zero)
                 if delay is not None:
                     slow_delay(flat_send[None], recv[None], delay)
             return recv
@@ -871,7 +910,16 @@ class TorchShardBackend:
         built = self._compiled(schedule)
         out = built.rep(self._send(schedule.pattern, iter_, built))
         sync(self.device)
+        self._check_fence(built)
         return None if built.idx is None else to_reference(out)
+
+    @staticmethod
+    def _check_fence(built: _Built) -> None:
+        """Raise :class:`~tpu_aggcomm_torch.backends.deliver_rows.
+        DeliverFenceError` if a launch of the build's many-round rep timed
+        out at a round fence."""
+        if built.fused is not None:
+            check_fence(built.fused)
 
     # ------------------------------------------------------------------
     def _round_segments(self, schedule):
@@ -891,10 +939,14 @@ class TorchShardBackend:
         if key in self._cache:
             return self._cache[key]
         built, host = self._mesh_layout(schedule)
+        if built.ndev == 1:
+            rounds, _tabs = _one_device_rounds(built, host, self.device)
+        else:
+            rounds = [(r, self._device_tab(built, pk, sc), nbar)
+                      for (r, pk, sc, nbar) in host]
         segs, round_ids = [], []
-        for (r, pk, sc, nbar) in host:
-            def seg(send, recv, tab=self._device_tab(built, pk, sc),
-                    nbar=nbar):
+        for (r, tab, nbar) in rounds:
+            def seg(send, recv, tab=tab, nbar=nbar):
                 return _apply_block_round(send, recv, tab, nbar, built.F,
                                           built.coll)
             segs.append(seg)
@@ -1181,6 +1233,7 @@ class TorchShardBackend:
                     # torch_sim
                     self.last_round_times.append([dt])
             recv_bufs = self._recv_bufs(p, built, out)
+        self._check_fence(built)
         if verify:
             self._verify(p, recv_bufs, iter_, local)
         return recv_bufs, timers

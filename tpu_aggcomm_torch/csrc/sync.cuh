@@ -13,8 +13,9 @@
 // co-resident (the launch is cooperative, or the grid is one thread-block
 // cluster), built from one such counter: a CTA arrives with a release
 // increment and waits until the counter reaches `target`. The counter is
-// zeroed in the stream before the launch, so barrier b of a launch waits
-// for (b + 1) * gridDim arrivals.
+// 0 at the launch's start (zeroed in the stream before it, or left so by
+// the previous launch's grid_depart), so barrier b of a launch waits for
+// (b + 1) * (the CTAs that arrive) arrivals.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -90,6 +91,34 @@ __device__ __forceinline__ bool grid_arrive_wait(BarrierWords w,
     red_release_add(w.counter, 1u);  // cumulative: covers the CTA's writes
     failed = wait_count(w.counter, 0u, target, w.error, (int)blockIdx.x, tag,
                         timeout);
+  }
+  return __syncthreads_or(failed) != 0;
+}
+
+// A CTA that took part in a launch's grid_arrive_wait barriers calls this
+// once, after its last one: every thread may call it, thread 0 departs.
+// `arrivals` is what the counter reaches when every CTA has arrived at
+// every barrier and departed; the last CTA to depart puts the counter back
+// to 0 (no CTA reads it after departing), so the next launch on the same
+// words needs no memset before it. A CTA that gave up at a barrier does
+// not depart: the counter then stays where it was, beside the error word.
+__device__ __forceinline__ void grid_depart(BarrierWords w,
+                                            unsigned arrivals) {
+  if (threadIdx.x == 0 && atomicAdd(w.counter, 1u) == arrivals - 1u) {
+    atomicExch(w.counter, 0u);
+  }
+}
+
+// Every thread of a CTA calls this, at the start of a launch that fences
+// with grid_arrive_wait on words that outlive it. True in every thread
+// when the error word is set: a barrier on these words timed out and the
+// record has not been cleared since, so the counter may stand where the
+// failed launch left it, and a barrier on it would not wait. The caller
+// then returns, writing nothing.
+__device__ __forceinline__ bool grid_failed(BarrierWords w) {
+  int failed = 0;
+  if (threadIdx.x == 0) {
+    failed = *reinterpret_cast<volatile int*>(w.error) != 0;
   }
   return __syncthreads_or(failed) != 0;
 }

@@ -179,7 +179,8 @@ def eager_chain(rep, n_recv_slots: int = 0, *, step=None):
 
 def _kernel_wrappers():
     """The port's kernel wrappers, each counting its launches in
-    ``.launches`` (and K1 its reps in ``.reps``)."""
+    ``.launches`` (K1 its reps in ``.reps``, the row delivery the rounds
+    of its many-round launches in ``.fused_rounds``)."""
     from tpu_aggcomm_torch.backends.cuda_dma import dma_steps
     from tpu_aggcomm_torch.backends.cuda_local import exchange
     from tpu_aggcomm_torch.backends.deliver_rows import deliver_rows
@@ -190,7 +191,7 @@ def _kernel_wrappers():
 
 def _counters() -> dict:
     return {(w, a): getattr(w, a) for w in _kernel_wrappers()
-            for a in ("launches", "reps") if hasattr(w, a)}
+            for a in ("launches", "reps", "fused_rounds") if hasattr(w, a)}
 
 
 def _capture(fn, state: dict):
@@ -225,9 +226,10 @@ def graph_chain(rep, n_recv_slots: int = 0, *, step=None):
     A wrapper's Python runs only while a graph is captured, when nothing
     launches; so the launch counters are restored after each capture and
     every replay adds what one pass of its block launches (one launch of
-    K2 a rep for ``cuda_fused``, one of the row delivery a round for
-    ``torch_shard`` with no group, one of the slow-rank delay a faulted
-    rep with a slow rank). A capture that fails raises
+    K2 a rep for ``cuda_fused``, one of the row delivery a round, or a
+    rep of many barrier-free rounds, for ``torch_shard`` with no group,
+    one of the slow-rank delay a faulted rep with a slow rank). A capture
+    that fails raises
     :class:`ChainCaptureError`. Each capture is a ledger record of kind
     "graph-capture" with its block length."""
     state: dict = {"graphs": {}}

@@ -88,13 +88,15 @@ of a rep over ndev devices is the total over ``ndev`` cards' bandwidth
 (``devices``), a lower bound of the busiest card's time.
 
 On one device (``ndev`` 1) a round is one launch of the row-delivery
-kernel (:mod:`tpu_aggcomm_torch.backends.deliver_rows`), priced from the
-rounds and zero runs the backend builds
+kernel (:mod:`tpu_aggcomm_torch.backends.deliver_rows`), or a rep of many
+barrier-free rounds one launch with its rounds fenced inside, priced from
+the rounds and zero runs the backend builds
 (``torch_shard.one_device_build``): every edge's row is read once and
 written once (``gather_read``, ``scatter_write``); nothing is
 materialized between them (``intermediate`` 0); ``zero_init`` is only
 the rows the rounds never write, zeroed by the first launch; the kernel
-reads two int32 tables an entry and the zero runs' two (``index_read``);
+reads two int32 tables an entry and the zero runs' two, and a
+many-round launch its round offsets (``index_read``);
 a padded round's pads are one entry, send row 0 read and written into
 the trash row (``pad``). The chained scaffold adds the XOR of every
 device's flat send buffer and the token's read of every live row's
@@ -233,7 +235,7 @@ def _shard_rep_bytes(schedule, ndev: int) -> RepBytes:
 
 def _deliver_rep_bytes(schedule) -> RepBytes:
     """One ``torch_shard`` rep on one device: a row-delivery launch a
-    round (module docstring)."""
+    round, or one for the rep (module docstring)."""
     from tpu_aggcomm_torch.backends.torch_shard import one_device_build
 
     d = schedule.pattern.data_size
@@ -246,7 +248,8 @@ def _deliver_rep_bytes(schedule) -> RepBytes:
         zero_init=zero.rows * d, intermediate=0, refence_walks=0,
         rounds=max(len(built.rounds), 1), edges=nedges,
         index_read=8 * entries + (4 * (2 * len(zero.runs) + 1)
-                                  if zero.runs else 0),
+                                  if zero.runs else 0)
+        + (4 * (len(built.rounds) + 1) if built.fused is not None else 0),
         barrier=0, pad=2 * (entries - nedges) * d, devices=1)
 
 
