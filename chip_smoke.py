@@ -3899,6 +3899,138 @@ def phase_deliver_rows(dev) -> dict:
     return out
 
 
+def phase_tam_relay(dev) -> dict:
+    """TAM's relay on one card (``torch_shard`` with no group: m=15/16 as
+    three bound row deliveries over m=1/m=2's compacted arenas). At
+    n=1024 a=64 ``-p 64`` d=2048, both directions: each hop's arena, the
+    allocator handed 0xFF blocks first, held byte for byte against the
+    same hop through ``deliver_rows_plain`` on the card (its arenas of
+    0xFF too), and the delivered arena against m=1's (m=2's) one-launch
+    rep of the same send. At the Theta job's p64 deployment (n=16384
+    a=256 ``-p 64`` d=2048, m=15): the build's seconds, the delivered
+    arena against the plain hops' and m=1's rep, the peak memory of a
+    rep, the rep by CUDA events over back-to-back reps, and each hop
+    alone, against its bound (2*E*d at 3.35 TB/s, and the zeroed trash
+    row in P4/P5's)."""
+    import torch
+
+    from tpu_aggcomm_torch.backends.deliver_rows import (deliver_rows,
+                                                         deliver_rows_plain,
+                                                         row_launcher)
+    from tpu_aggcomm_torch.backends.torch_shard import TorchShardBackend
+    from tpu_aggcomm_torch.core.methods import compile_method
+    from tpu_aggcomm_torch.core.pattern import AggregatorPattern
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2**31 + 53)
+    torch.cuda.empty_cache()
+
+    def filled(rows, w):
+        block = torch.empty(rows * w * 4, dtype=torch.uint8, device=dev)
+        block.fill_(0xFF)
+        del block
+
+    def build(method, n, a):
+        t0 = time.perf_counter()
+        s = compile_method(method, AggregatorPattern(
+            n, a, data_size=2048, proc_node=64, comm_size=999_999_999))
+        return s, TorchShardBackend(dev)._compiled(s), \
+            time.perf_counter() - t0
+
+    def plain_hops(built, send, keep=True):
+        """The three hops through the plain version, into arenas of -1:
+        each hop's arena (``keep``), else the last alone."""
+        out, src = [], send
+        for k, tabs in enumerate(built.relay, 1):
+            rows = built.F if k == 3 else tabs.recv_rows
+            src = deliver_rows_plain(
+                src, torch.full((rows, send.shape[1]), -1, dtype=send.dtype,
+                                device=dev), tabs,
+                built.zero if k == 3 else None)
+            if keep or k == 3:
+                out.append(src)
+        return out
+
+    def direct(s, send):
+        one = compile_method(s.method_id - 14, s.pattern)
+        return TorchShardBackend(dev)._compiled(one).rep(send)
+
+    out = {}
+    for method in (15, 16):
+        s, built, _s = build(method, 1024, 64)
+        send = torch.randint(-2**31, 2**31 - 1, (built.Fs, 512),
+                             dtype=torch.int32, device=dev, generator=gen)
+        filled(built.F + 2 * built.relay[0].recv_rows, 512)
+        launches, hops = deliver_rows.launches, deliver_rows.relay_hops
+        stages = []
+        got = built.rep(send, stages=stages)
+        torch.cuda.synchronize()
+        check(deliver_rows.launches - launches == 3
+              and deliver_rows.relay_hops - hops == 3,
+              f"tam_relay m={method} n=1024: not three launches a rep")
+        for k, (g, w) in enumerate(zip(stages, plain_hops(built, send)), 1):
+            check(torch.equal(g, w), f"tam_relay m={method} n=1024: hop "
+                  f"{k} != its plain version")
+        check(torch.equal(got, direct(s, send)), f"tam_relay m={method} "
+              f"n=1024: the relay's arena != m={method - 14}'s")
+        print(f"# tam_relay m={method} n=1024 a=64 -p 64 d=2048: "
+              f"{built.relay[0].n_rows} slabs a hop; each hop == its plain "
+              f"version, the arena == m={method - 14}'s rep", flush=True)
+        del s, built, send, stages, got
+        torch.cuda.empty_cache()
+
+    s, built, build_s = build(15, 16384, 256)
+    w, d = 512, 2048
+    E = built.relay[0].n_rows
+    send = torch.randint(-2**31, 2**31 - 1, (built.Fs, w), dtype=torch.int32,
+                         device=dev, generator=gen)
+    filled(built.F + 2 * E, w)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    got = built.rep(send)
+    torch.cuda.synchronize()
+    rep_peak = torch.cuda.max_memory_allocated(dev) - base
+    (want,) = plain_hops(built, send, keep=False)
+    check(torch.equal(got, want), "tam_relay Theta p64: the relay's arena "
+          "!= its plain hops'")
+    del want
+    torch.cuda.empty_cache()
+    check(torch.equal(got, direct(s, send)), "tam_relay Theta p64: the "
+          "relay's arena != m=1's rep")
+    torch.cuda.empty_cache()
+    rep_ms = cuda_ms(lambda: built.rep(send), 10, 2)
+    arenas = [send, torch.empty((E, w), dtype=torch.int32, device=dev),
+              torch.empty((E, w), dtype=torch.int32, device=dev), got]
+    hop_ms, bound_ms = [], []
+    for k, tabs in enumerate(built.relay, 1):
+        zero = built.zero if k == 3 else None
+        src, dst = arenas[k - 1], arenas[k]
+        issue = row_launcher(tabs, zero, send_shape=tuple(src.shape),
+                             recv_shape=tuple(dst.shape), dtype=torch.int32)
+        hop_ms.append(cuda_ms(lambda: issue(src, dst), 10, 2))
+        bound_ms.append((2 * tabs.n_rows * d + (zero.rows if zero else 0)
+                         * d) / HBM_BYTES_PER_S * 1e3)
+    theta = dict(shape=[16384, 256, d, 64], slabs=E, build_s=build_s,
+                 rep_ms=rep_ms, hop_ms=hop_ms, hop_bound_ms=bound_ms,
+                 bound_ms=sum(bound_ms), roofline=sum(bound_ms) / rep_ms,
+                 hop_roofline=[b / h for b, h in zip(bound_ms, hop_ms)],
+                 rep_peak_bytes=rep_peak)
+    out["theta"] = theta
+    print(f"# tam_relay Theta p64 n=16384 a=256 d=2048 m=15: build "
+          f"{build_s:.2f} s; the arena == its plain hops' and m=1's rep; a "
+          f"rep {rep_ms:.3f} ms (CUDA events over 10 reps), "
+          f"{100 * theta['roofline']:.2f}% of its bound "
+          f"{theta['bound_ms']:.3f} ms; hops alone "
+          + ", ".join(f"{h:.3f} ms ({100 * b / h:.2f}%)"
+                      for h, b in zip(hop_ms, bound_ms))
+          + f"; a rep allocates {rep_peak / 1e9:.2f} GB at its peak",
+          flush=True)
+    del s, built, send, got, arenas
+    torch.cuda.empty_cache()
+    return out
+
+
 MESH_ARGS = ["-n", "1", "-a", "1", "-d", "2048", "--backend", "torch_ici",
              "--verify"]
 
@@ -4128,6 +4260,7 @@ def main() -> int:
                   serve["delay"])
     shard = timed("shard_flagship", phase_shard_flagship, dev)
     deliver = timed("deliver_rows", phase_deliver_rows, dev)
+    relay = timed("tam_relay", phase_tam_relay, dev)
     mesh = timed("mesh_tier", phase_mesh_tier, smi)
     later_k2 = (tam_obs["counts"]["fused_rep"] + serve["counts"]["fused_rep"]
                 + tune_synth["counts"]["fused_rep"]
@@ -4204,7 +4337,7 @@ def main() -> int:
         library_ms=None, us_per_rep=wide["ms"] * 1e3,
         matches_plain=wide["max_abs_err"] == 0
         and deliver[256]["max_abs_err"] == 0,
-        narrow=deliver[256], c64=deliver["c64"]))
+        narrow=deliver[256], c64=deliver["c64"], relay=relay["theta"]))
     print(json.dumps({"kernels": kernels}))
     print(f"# chip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     print(smi)

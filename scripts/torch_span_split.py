@@ -11,20 +11,25 @@ adds the port's recorder, a lean one (no manifest):
 
 - around the build, so the ``tables_s`` mark splits into the spans
   ``schedule.compile``, ``tables.edges`` and ``tables.rounds``
-  (``schedule_s``, ``edges_s``, ``round_tables_s``);
+  (``schedule_s``, ``edges_s``, ``round_tables_s``), and a TAM relay's
+  ``tables.relay`` (``relay_tables_s``);
 - in span slices after the window, before any profiler has run:
   ``profile_skip + profile_exchanges`` exchanges timed as the window
   times them, with the recorder on and no profiler, in turn with the
   same slice with the recorder off (plain, span, plain, span); over the
   last ``profile_exchanges`` of each span slice, the per-exchange means
-  of ``rep``'s self time, ``rep.arena`` and ``rep.issue``
-  (``rep_self_us``, ``arena_us``, ``issue_us``), against the span
+  of ``rep``'s self time, ``rep.arena``, ``rep.issue`` and ``rep.hop``
+  (``rep_self_us``, ``arena_us``, ``issue_us``, ``hop_us``), and of each
+  relay hop's ``rep.hop`` (``hop_issue_us``, hops 1-3), against the span
   slices' own mean dispatch, and that against the plain slices' (what
   tracing costs when on);
 - in a profiled slice (``aggbench.tracing.profile_slice``'s loop), run
   once with the recorder off and once on, each reduced by
   ``aggbench.tracing``; the second also with the device-side copies of
-  the port's ranges left out (``clean``).
+  the port's ranges left out (``clean``); where each exchange runs the
+  relay's three ``deliver_rows`` launches, each hop's mean device time
+  in the clean slice (``hop_device_us``: the exchange's first, second
+  and third launch).
 
 It also times empty spans: the wall of a span site off and on, and
 what one child span adds to its parent's self time.
@@ -54,7 +59,8 @@ import time  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 BUILD = {"schedule_s": "schedule.compile", "edges_s": "tables.edges",
-         "round_tables_s": "tables.rounds"}
+         "round_tables_s": "tables.rounds", "relay_tables_s": "tables.relay"}
+HOPS = 3
 
 
 def _card() -> str | None:
@@ -75,7 +81,7 @@ def _slice(profile: dict, n: int) -> dict:
             "device_ops": profile["device_ops"]}
 
 
-PARTS = ("rep_self_us", "arena_us", "issue_us")
+PARTS = ("rep_self_us", "arena_us", "issue_us", "hop_us")
 
 
 def _parts(events) -> dict:
@@ -83,7 +89,38 @@ def _parts(events) -> dict:
     return dict(zip(PARTS, (
         trace.span_self_us(events, "rep"),
         trace.span_child_us(events, "rep", "rep.arena"),
-        trace.span_child_us(events, "rep", "rep.issue"))))
+        trace.span_child_us(events, "rep", "rep.issue"),
+        trace.span_child_us(events, "rep", "rep.hop"))))
+
+
+def _hop_issue_us(events) -> list:
+    """Each relay hop's ``rep.hop`` span, mean microseconds, hops 1-3
+    (empty where the rep runs no relay)."""
+    by = {}
+    for e in events:
+        if e["ev"] == "host_span" and e["name"] == "rep.hop":
+            by.setdefault(e["args"]["hop"], []).append(e["dur"])
+    return [statistics.fmean(by[k]) for k in sorted(by)]
+
+
+def _hop_device_us(device, host, skip: int, n: int) -> list:
+    """Each relay hop's mean device microseconds over the slice's last
+    ``n`` exchanges: the ``deliver_rows`` launches that start in them,
+    taken three to an exchange in order (empty unless every exchange ran
+    three). A hop's time runs to its end from the later of its start and
+    the previous hop's end: each launch is a programmatic dependent one,
+    whose record also holds its wait for the launch before it."""
+    from aggbench.tracing import DISPATCH
+    marks = sorted(h[0] for h in host if h[2] == DISPATCH)
+    w0 = marks[skip]
+    kernels = sorted((s, e) for s, e, name in device
+                     if "deliver_rows_kernel" in name and s >= w0)
+    if len(kernels) != HOPS * n:
+        return []
+    own = [e - (max(s, kernels[i - 1][1]) if i % HOPS else s)
+           for i, (s, e) in enumerate(kernels)]
+    return [statistics.fmean(t / 1e3 for t in own[k::HOPS])
+            for k in range(HOPS)]
 
 
 def _timed_slice(rep, arenas, count: int, sync, traced: bool):
@@ -208,12 +245,14 @@ def main(argv=None) -> int:
         rep(arenas[i % len(arenas)])
         sync()
     plain, spans, parts = [], [], {k: [] for k in PARTS}
+    hop_issue = []
     for traced in (False, True, False, True):
         dispatch, events = _timed_slice(rep, arenas, skip + n, sync, traced)
         if not traced:
             plain += dispatch[skip:]
             continue
         spans += dispatch[skip:]
+        hop_issue.append(_hop_issue_us(events))
         for k, v in _parts(events).items():
             if len(v) != skip + n:
                 raise RuntimeError(f"{k}: {len(v)} rep spans in a slice of "
@@ -225,6 +264,7 @@ def main(argv=None) -> int:
     out["span_share"] = (sum(out[k] for k in PARTS)
                          / out["span_dispatch_us"])
     out["span_cost"] = out["span_dispatch_us"] / out["plain_dispatch_us"]
+    out["hop_issue_us"] = [statistics.fmean(h) for h in zip(*hop_issue)]
 
     out["profiled_off"] = _slice(tracing.profile_slice(rep, arenas, skip, n,
                                                        sync), n)
@@ -239,6 +279,7 @@ def main(argv=None) -> int:
     clean = [d for d in device if d[2] not in ported]
     out["profiled_on_clean"] = _slice(tracing.reduce(clean, host, skip, n),
                                       n)
+    out["hop_device_us"] = _hop_device_us(clean, host, skip, n)
     out["one_clock"] = _one_clock(rec, host)
     out["span_sites"] = _span_site_cost()
     print(json.dumps(out), flush=True)

@@ -1539,3 +1539,94 @@ def test_deliver_rounds_after_a_fence_timeout_writes_nothing(cuda):
         torch.as_tensor(src, device=cuda)]
     assert torch.equal(recv, want)
     dr.check_fence(tabs)
+
+
+# TAM's relay on one card (torch_shard with no group, m=15/16): three bound
+# row deliveries over m=1/m=2's compacted arenas, into arenas the caching
+# allocator hands back filled with 0xFF.
+
+@pytest.mark.parametrize("method,n,a,p,d", [
+    (15, 64, 8, 4, 2048), (16, 64, 8, 4, 256),
+    (15, 70, 8, 64, 6),                         # ragged node, byte lanes
+    (16, 10, 3, 4, 100),                        # 4-byte lanes
+])
+def test_relay_on_the_card_equals_the_cpu_hop_by_hop(cuda, method, n, a, p,
+                                                     d):
+    """Each hop's arena on the card equals the CPU's (the same tables
+    through the kernel's plain version); a rep is three launches and three
+    relay hops; the delivered arena, trash row included, equals m=1's
+    (m=2's) rep of the same send on the card."""
+    from tpu_aggcomm_torch.backends.deliver_rows import deliver_rows
+    s = compile_method(method, AggregatorPattern(n, a, data_size=d,
+                                                 proc_node=p, placement=3))
+    bg, bc, sg, sc = _shard_builds(s, cuda)
+    _poison(3 * bg.F * sg.shape[1] * sg.element_size(), cuda)
+    launches, hops = deliver_rows.launches, deliver_rows.relay_hops
+    got, want = [], []
+    recv = bg.rep(sg, stages=got)
+    torch.cuda.synchronize()
+    assert deliver_rows.launches - launches == 3
+    assert deliver_rows.relay_hops - hops == 3
+    bc.rep(sc, stages=want)
+    assert len(got) == len(want) == 3 and got[-1] is recv
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(to_reference(g), to_reference(w))
+    direct, _bc, _sg, _sc = _shard_builds(
+        compile_method(method - 14, s.pattern), cuda)
+    np.testing.assert_array_equal(to_reference(recv),
+                                  to_reference(direct.rep(sg)))
+
+
+@pytest.mark.parametrize("iters", [5, 53])
+def test_relay_graph_chain_equals_the_eager_chain(cuda, iters):
+    """The relay's chain as CUDA graph replays (its three arenas allocated
+    inside the capture) equals the same chain run eagerly; three launches
+    of every replayed rep and of the warm-up rep."""
+    from tpu_aggcomm_torch.backends.deliver_rows import deliver_rows
+    from tpu_aggcomm_torch.parallel import group_sum
+    s = compile_method(15, AggregatorPattern(64, 8, data_size=2048,
+                                             proc_node=4))
+    bg, _bc, sg, _sc = _shard_builds(s, cuda)
+    F = bg.F
+
+    def step(carry, r):
+        recv = bg.rep(carry)
+        chained.xor_token_(carry, chained.token_from_sum(
+            group_sum(recv[:F - 1, 0], None), r))
+
+    want = chained.eager_chain(None, step=step)(iters)(sg)
+    make_chain = bg.make_chain()
+    for first in (True, False):
+        before = deliver_rows.launches
+        got = make_chain(iters)(sg)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert deliver_rows.launches - before == 3 * (iters + first)
+    assert not torch.equal(got, sg)
+
+
+def test_row_launcher_binds_once_and_checks_other_arenas(cuda):
+    """A bound hop: arenas of its shapes are one launch; arenas of other
+    shapes take the checked path (the same bytes, or a named refusal for
+    a receive arena too short)."""
+    from tpu_aggcomm_torch.backends import deliver_rows as dr
+    s = compile_method(16, AggregatorPattern(32, 5, data_size=256,
+                                             proc_node=4))
+    bg, _bc, sg, _sc = _shard_builds(s, cuda)
+    tabs, w = bg.relay[0], sg.shape[1]
+    E = tabs.recv_rows
+    issue = dr.row_launcher(tabs, None, send_shape=tuple(sg.shape),
+                            recv_shape=(E, w), dtype=sg.dtype)
+    want = torch.zeros((E, w), dtype=sg.dtype, device=cuda)
+    want[tabs.dst_dev.long()] = sg[tabs.src_dev.long()]
+    launches = dr.deliver_rows.launches
+    got = torch.full((E, w), -1, dtype=sg.dtype, device=cuda)
+    issue(sg, got)
+    wider = torch.full((E + 7, w), -1, dtype=sg.dtype, device=cuda)
+    issue(sg, wider)
+    torch.cuda.synchronize()
+    assert dr.deliver_rows.launches - launches == 2
+    assert torch.equal(got, want) and torch.equal(wider[:E], want)
+    assert (wider[E:] == -1).all()
+    with pytest.raises(ValueError, match="outside"):
+        issue(sg, got[:E - 1])

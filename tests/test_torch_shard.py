@@ -436,7 +436,9 @@ def test_measured_round_times_are_additive(pool):
 
 def test_chained_run_and_tam_chain(pool):
     """``run(chained=True)``: positive per-rep time, attributed columns;
-    TAM rides the blocked engine's chain with the chained provenance."""
+    TAM with no group rides the relay's chain with the chained
+    provenance, and the blocked engine's chain, called directly, still
+    runs on one process."""
     b = TorchShardBackend("cpu")
     s = compile_method(1, AggregatorPattern(16, 5, data_size=32,
                                             comm_size=4))
@@ -447,6 +449,7 @@ def test_chained_run_and_tam_chain(pool):
                                                comm_size=4))
     b.run(tam, chained=True, verify=True)
     assert b.last_provenance == ("torch_shard", "attributed-chained")
+    assert b.last_route == "relay"
     assert engine.tam_two_level_sharded_chained(
         tam, [0], device="cpu", iters_small=2, iters_big=12, trials=2,
         windows=1) > 0

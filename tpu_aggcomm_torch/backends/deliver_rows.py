@@ -29,6 +29,9 @@ its arena with ``torch.empty``.
   issuer reads the rep's two arenas and the stream once, so each of the
   rep's rounds is one ctypes call. CPU tensors take
   :func:`deliver_rows_plain`, the kernel's contract in plain torch.
+  :func:`row_launcher` binds one round's tables instead, once, for any
+  arenas of given shapes (each hop of ``torch_shard``'s TAM relay);
+  ``deliver_rows.relay_hops`` counts the hops the relay issues.
 - :func:`deliver_rounds`: the first ``n`` rounds of a :class:`RoundTables`
   in ONE cooperative launch, each round fenced from the next inside the
   kernel (a rep of many rounds with no barrier token between them). It
@@ -54,8 +57,8 @@ import torch
 __all__ = ["RowTables", "RoundTables", "ZeroRuns", "DeliverFenceError",
            "row_tables", "round_tables", "unwritten_runs", "zero_runs",
            "deliver_rows", "deliver_rows_plain", "arena_launcher",
-           "deliver_rounds", "deliver_rounds_plain", "rounds_launcher",
-           "rounds_plan", "check_fence"]
+           "row_launcher", "deliver_rounds", "deliver_rounds_plain",
+           "rounds_launcher", "rounds_plan", "check_fence"]
 
 #: rows, table entries and tasks of one launch stay below this (int32)
 INT32_LIMIT = 2 ** 31
@@ -362,8 +365,55 @@ def arena_launcher(send: torch.Tensor, recv: torch.Tensor):
     return issue
 
 
+def row_launcher(tabs: RowTables, zero: ZeroRuns | None, *,
+                 send_shape: tuple, recv_shape: tuple, dtype: torch.dtype):
+    """``issue(send, recv)``: one round of :func:`deliver_rows` of ``tabs``
+    and ``zero``, bound once for arenas of ``send_shape`` and
+    ``recv_shape`` in ``dtype`` on the tables' device. On the card the
+    tables' and zero runs' arguments, the row width and the device are
+    read once, so a call on such arenas, contiguous, is a key compare and
+    one ctypes call on PyTorch's current stream; any other arenas take
+    :func:`arena_launcher` with its checks. On the CPU every call is the
+    plain version, after the same checks."""
+    zero = zero or NO_ZERO
+    device = tabs.src_dev.device
+
+    def checked(send: torch.Tensor, recv: torch.Tensor) -> None:
+        arena_launcher(send, recv)(tabs, zero)
+
+    if device.type == "cpu":
+        return checked
+    send_shape, recv_shape = torch.Size(send_shape), torch.Size(recv_shape)
+    if len(send_shape) != 2 or send_shape[1:] != recv_shape[1:]:
+        raise ValueError(f"deliver_rows: send {tuple(send_shape)} and recv "
+                         f"{tuple(recv_shape)} must share their row")
+    _check_tables(device, send_shape[0], recv_shape[0], tabs, zero)
+    index = _dev_index(device)
+    fn, stream = _c_lib()[0], torch._C._cuda_getCurrentRawStream
+    args = (*tabs.args, *zero.args, recv_shape[1] * dtype.itemsize)
+    empty = not (tabs.n_rows or zero.rows)
+
+    def issue(send: torch.Tensor, recv: torch.Tensor) -> None:
+        if not (send.shape == send_shape and recv.shape == recv_shape
+                and send.dtype is dtype and recv.dtype is dtype
+                and send.get_device() == index == recv.get_device()
+                and send.is_contiguous() and recv.is_contiguous()):
+            checked(send, recv)
+            return
+        if empty:
+            return
+        rc = fn(send.data_ptr(), recv.data_ptr(), *args, stream(index), index)
+        if rc != 0:
+            raise RuntimeError(f"deliver_rows kernel launch failed: "
+                               f"cudaError {rc}")
+        deliver_rows.launches += 1
+
+    return issue
+
+
 deliver_rows.launches = 0
 deliver_rows.fused_rounds = 0
+deliver_rows.relay_hops = 0
 
 
 def _dev_index(device) -> int:

@@ -50,10 +50,20 @@ Deep barrier-free schedules (32 rounds or more) take the reference's
 padded-table form (every round at the widest round's width, pads into
 the trash row); each round stays its own launch sequence.
 
-TAM methods (m=15/16) run the blocked two-level engine
-(:func:`tpu_aggcomm_torch.tam.engine.tam_two_level_sharded`): two padded
-block all_to_alls, along the ``node`` and the ``local`` axis of a
-(Dn, Dl) grid of processes.
+TAM methods (m=15/16) on one device with no process group run the
+proxy engine's relay (``collective_write``, lustre_driver_test.c:944-1309)
+over the same compacted arenas as m=1/m=2 on the pattern: three row
+deliveries, P2 from the send arena into a staging arena in
+``proxy_hold`` order, P3 into a second staging arena in ``node_in``
+order, P4/P5 into each receiver's slot (orders from
+:func:`tpu_aggcomm_torch.tam.relay.relay_orders`). Each hop is its own
+launch, a pass over every slab: the hops are never composed into one
+gather, as throttle rounds are never merged, and a hop whose order is
+the identity is still copied (the reference's pack and transfer,
+l_d_t.c:1069-1105). Under a process group they run the blocked
+two-level engine (:func:`tpu_aggcomm_torch.tam.engine.
+tam_two_level_sharded`): two padded block all_to_alls, along the
+``node`` and the ``local`` axis of a (Dn, Dl) grid of processes.
 
 Slow-rank faults add, after the rounds, each process's delay iterations
 (the sum over its slow ranks) into ``recv[0, 0]`` through the delay
@@ -96,7 +106,10 @@ from tpu_aggcomm_torch.backends.deliver_rows import (RoundTables,
                                                      RowTables, ZeroRuns,
                                                      arena_launcher,
                                                      check_fence,
+                                                     deliver_rows,
                                                      round_tables,
+                                                     row_launcher,
+                                                     row_tables,
                                                      rounds_launcher,
                                                      unwritten_runs,
                                                      zero_runs)
@@ -124,6 +137,7 @@ from tpu_aggcomm_torch.parallel import (agree_max, collective_group,
                                         group_ranks, group_sum,
                                         verify_ranks)
 from tpu_aggcomm_torch.tam.engine import TamMethod
+from tpu_aggcomm_torch.tam.relay import relay_orders
 
 __all__ = ["TorchShardBackend", "block_round_tables", "recv_layout",
            "send_counts", "fill_rows", "schedule_edges", "one_device_build"]
@@ -360,7 +374,9 @@ class _Built:
     None under an exchange, whose arena is zeroed) and, for a rep of more
     than one round and no barrier token, the rounds as one launch reads
     them (``fused``; every round's tables are views of it), and the
-    rep/chain constructors. ``idx`` is None for a process outside the
+    rep/chain constructors. A TAM relay has no rounds: ``relay`` holds its
+    three hops' row tables (P2, P3, P4/P5) and ``zero`` the receive rows
+    P4/P5 leaves unwritten. ``idx`` is None for a process outside the
     mesh: it holds no ranks and runs the same program over empty
     blocks."""
 
@@ -378,6 +394,7 @@ class _Built:
     rounds: list | None = None          # [(round id, _RoundTab, nbar)]
     zero: ZeroRuns | None = None
     fused: RoundTables | None = None
+    relay: tuple | None = None
     rep: object = None
     make_chain: object = None
 
@@ -460,6 +477,82 @@ def _zero_runs(F: int, rounds: list, device) -> ZeroRuns:
         F, [(tab.rows.dst, nbar) for (_r, tab, nbar) in rounds]), device)
 
 
+def _relay_build(tam: TamMethod, device) -> _Built:
+    """A TAM schedule's relay on one device: m=1/m=2's compacted layouts
+    on the pattern, and the three hops' row tables over them (P2: send
+    rows into staging rows ``0 .. E-1`` in ``proxy_hold`` order; P3:
+    those into a second staging arena in ``node_in`` order; P4/P5: its
+    rows into the receivers' slots, zeroing the receive rows none
+    writes)."""
+    p = tam.pattern
+    with trace.span("tables.relay"):
+        o = relay_orders(p, tam.assignment)
+        counts = np.asarray(recv_slot_counts(p))
+        recv_base, F = recv_layout(counts, 1, p.nprocs)
+        send_base, Fs = recv_layout(send_counts(p), 1, p.nprocs)
+        E = o.n_slabs
+        rows = np.arange(E, dtype=np.int32)
+        hops = (
+            row_tables(send_base[o.stage_src] + o.stage_slot, rows, F=E,
+                       Fs=Fs, device=device),
+            row_tables(o.exch, rows, F=E, Fs=E, device=device),
+            row_tables(rows, recv_base[o.dst] + o.dst_slot, F=F, Fs=E,
+                       device=device))
+        zero = zero_runs(unwritten_runs(F, [(hops[2].dst, 0)]), device)
+    return _Built(ndev=1, bsz=p.nprocs, idx=0, data_size=p.data_size, F=F,
+                  Fs=Fs, counts=counts, recv_base=recv_base,
+                  send_base=send_base, rounds=[], zero=zero, relay=hops)
+
+
+def _relay_rep(built: _Built, device):
+    """``rep(flat_send (Fs, w), upto=None, stages=None) -> recv (F, w)``:
+    the relay's three hops, each one bound row delivery
+    (:func:`row_launcher`) from the previous hop's arena into a fresh
+    ``torch.empty`` one, P2 and P3 into staging arenas of E rows, P4/P5
+    into the receive arena. A staging arena is dropped once the next hop
+    has been issued, so the receive arena can take its memory. While a
+    trace recorder is on, a ``rep`` span holding each allocation's
+    ``rep.arena`` and each hop's ``rep.hop`` (``hop`` 1-3, ``rows`` its
+    slabs); ``deliver_rows.relay_hops`` counts the hops. ``stages``, a
+    list, gets each hop's output appended (the staging arenas kept);
+    ``upto`` is the chain scaffold's and takes None alone: the relay has
+    no round prefixes."""
+    _, dt, w = lane_layout(built.data_size)
+    rows_in = (built.Fs, *(t.recv_rows for t in built.relay[:2]))
+    rows_out = (*rows_in[1:], built.F)
+    hops = []
+
+    def bind() -> list:
+        """Each hop's ``(rows, slabs, issue)``, bound at the first rep (on
+        the card that loads the kernel library, as a round's launcher
+        does)."""
+        return [(rows, tabs.n_rows, row_launcher(
+                    tabs, built.zero if k == 3 else None,
+                    send_shape=(src, w), recv_shape=(rows, w), dtype=dt))
+                for k, (tabs, src, rows) in enumerate(
+                    zip(built.relay, rows_in, rows_out), 1)]
+
+    def rep(flat_send, upto: int | None = None, stages: list | None = None):
+        if upto is not None:
+            raise ValueError("the TAM relay has no round prefixes")
+        if not hops:
+            hops.extend(bind())
+        src = flat_send
+        with trace.span("rep"):
+            for k, (rows, slabs, issue) in enumerate(hops, 1):
+                with trace.span("rep.arena"):
+                    dst = torch.empty((rows, w), dtype=dt, device=device)
+                with trace.span("rep.hop", hop=k, rows=slabs):
+                    issue(src, dst)
+                deliver_rows.relay_hops += 1
+                if stages is not None:
+                    stages.append(dst)
+                src = dst
+        return src
+
+    return rep
+
+
 def one_device_build(schedule: Schedule, device, *, member: bool = True
                      ) -> _Built:
     """``schedule``'s build on one device, with no backend and no process
@@ -469,7 +562,14 @@ def one_device_build(schedule: Schedule, device, *, member: bool = True
     in one launch's form, where there are more than one and no barrier
     token. What ``TorchShardBackend`` runs at one device and the roofline
     prices. ``member=False`` is a process outside a one-device mesh: the
-    same rounds over a one-row arena and no rows."""
+    same rounds over a one-row arena and no rows. A TAM schedule builds
+    its relay (``relay``; a member alone: under a group TAM runs the
+    blocked engine)."""
+    if isinstance(schedule, TamMethod):
+        if not member:
+            raise ValueError("a TAM relay is built on the one device that "
+                             "holds every rank")
+        return _relay_build(schedule, device)
     built, host = _host_layout(schedule, 1, 0 if member else None)
     with trace.span("tables.rounds"):
         built.rounds, tabs = _one_device_rounds(
@@ -719,8 +819,12 @@ class TorchShardBackend:
         if key in self._cache:
             return self._cache[key]
         if isinstance(schedule, TamMethod):
-            raise TypeError("TAM schedules run the blocked engine "
-                            "(_run_tam_sharded), not the round tables")
+            if not self._relay_applies(schedule):
+                raise TypeError("TAM schedules under a process group run "
+                                "the blocked engine (_run_tam_sharded), not "
+                                "the relay")
+            built = one_device_build(schedule, self.device)
+            return self._bind(key, built, _relay_rep(built, self.device))
         p = schedule.pattern
         n = p.nprocs
         _, dt, w = lane_layout(p.data_size)
@@ -814,6 +918,13 @@ class TorchShardBackend:
                     slow_delay(flat_send[None], recv[None], delay)
             return recv
 
+        return self._bind(key, built, rep)
+
+    def _bind(self, key, built: _Built, rep) -> _Built:
+        """Finish and cache a build around its ``rep``: the serial-chain
+        factory over it, and the layout the rep's arenas follow on it."""
+        F, coll, dev = built.F, built.coll, self.device
+
         def make_chain(upto: int | None = None):
             """The serial-chain factory: rep r+1's send XOR-perturbed by
             the token of rep r's delivered rows summed over every
@@ -834,6 +945,12 @@ class TorchShardBackend:
         built.rep, built.make_chain = rep, make_chain
         self._cache[key] = built
         return built
+
+    def _relay_applies(self, schedule) -> bool:
+        """Whether ``schedule`` is TAM on one device with no process group
+        (and no split asking for more devices): the relay's case."""
+        return (isinstance(schedule, TamMethod) and self._coll is None
+                and self._ranks_per_device in (None, schedule.nprocs))
 
     def one_rep(self, schedule):
         """``rep(flat_send (Fs, w)) -> recv (F, w)`` on this process's
@@ -1015,7 +1132,8 @@ class TorchShardBackend:
         on the card), rep r+1's send perturbed by the group-summed token
         of rep r's delivery, the fixed overhead differenced away; the
         group's maximum. Cached per schedule (iteration-invariant)."""
-        if isinstance(schedule, TamMethod):
+        if (isinstance(schedule, TamMethod)
+                and not self._relay_applies(schedule)):
             raise ValueError(
                 "TAM has no round-program chain here; chained TAM on "
                 "torch_shard rides the blocked engine — call "
@@ -1125,6 +1243,7 @@ class TorchShardBackend:
         self.last_provenance = ("torch_shard",
                                 "attributed-chained" if chained
                                 else "attributed")
+        self.last_route = "rounds"
         if profile_rounds:
             profiled = self._round_segments(schedule)
             if profiled is not None:
@@ -1144,6 +1263,12 @@ class TorchShardBackend:
                 "measured phases need a round-structured schedule "
                 "(TAM's 3-hop decomposition is measured by torch_sim's "
                 "measure_tam_hops; the dense collectives have none)")
+        if is_tam and self._relay_applies(schedule):
+            # one device, no group: the relay's three row deliveries run
+            # the normal path below (plain, --verify, --chained)
+            self.last_route, is_tam = "relay", False
+        elif is_tam:
+            self.last_route = "blocked"
         if is_tam and chained:
             # honest flagship-TAM timing: the blocked engine's chain
             # scaffold — delivery and verification from the same rep

@@ -86,6 +86,7 @@ from tpu_aggcomm_torch.harness.verify import (make_send_slabs,
                                               recv_slot_counts, slot_shapes,
                                               verify_recv)
 from tpu_aggcomm_torch.tam.engine import TamMethod
+from tpu_aggcomm_torch.tam.relay import relay_orders
 
 __all__ = ["TorchSimBackend", "NotPortedError", "dense_send_bytes",
            "dense_send_lanes", "dense_send_batch"]
@@ -310,47 +311,13 @@ def _tam_tables(tam):
     P3 exchange:  exch[k]      = staged[exch_idx[k]]       (proxy <-> proxy)
     P4/P5 deliver recv[recv_dst[k], recv_slot[k]] = exch[k]
 
-    Orders mirror tam_oracle's proxy_hold / node_in walks, so the staged
-    layout is the aggregate-buffer layout of the reference engine."""
-    p = tam.pattern
-    na = tam.assignment
-    if p.direction is Direction.ALL_TO_MANY:
-        senders = list(range(p.nprocs))
-        nslots = p.cb_nodes
-        dest_of = lambda s, i: int(p.rank_list[i])           # noqa: E731
-        slot_of = lambda s, i: s                             # noqa: E731
-    else:
-        senders = [int(r) for r in p.rank_list]
-        nslots = p.nprocs
-        dest_of = lambda s, i: i                             # noqa: E731
-        agg_index = p.agg_index
-        slot_of = lambda s, i: int(agg_index[s])             # noqa: E731
-
-    # P2: proxy_hold order — per node, each resident sender's slabs packed
-    stage: list[tuple[int, int]] = []
-    stage_pos: dict[tuple[int, int], int] = {}
-    for node in range(na.nnodes):
-        for s in senders:
-            if int(na.node_of[s]) != node:
-                continue
-            for i in range(nslots):
-                stage_pos[(s, i)] = len(stage)
-                stage.append((s, i))
-    stage_idx = np.array([s * nslots + i for (s, i) in stage], dtype=np.int32)
-
-    # P3: node_in order — per destination node, arrivals in proxy_hold order
-    exch_idx, recv_dst, recv_slot = [], [], []
-    for node in range(na.nnodes):
-        for (s, i) in stage:
-            d = dest_of(s, i)
-            if int(na.node_of[d]) != node:
-                continue
-            exch_idx.append(stage_pos[(s, i)])
-            recv_dst.append(d)
-            recv_slot.append(slot_of(s, i))
-    return (stage_idx, np.array(exch_idx, dtype=np.int32),
-            np.array(recv_dst, dtype=np.int32),
-            np.array(recv_slot, dtype=np.int32))
+    The orders are :func:`~tpu_aggcomm_torch.tam.relay.relay_orders`'
+    (tam_oracle's proxy_hold / node_in walks), so the staged layout is
+    the aggregate-buffer layout of the reference engine, and
+    ``torch_shard``'s relay reads the same orders."""
+    o = relay_orders(tam.pattern, tam.assignment)
+    stage_idx = o.stage_src.astype(np.int64) * o.nslots + o.stage_slot
+    return stage_idx.astype(np.int32), o.exch, o.dst, o.dst_slot
 
 
 def _no_round_structure(schedule) -> bool:
