@@ -242,7 +242,12 @@ first failure (no phase's failure is caught):
    for byte with the plain version and with ATen's gather and
    ``index_put_`` into a zeroed arena, timed (graph and eager) beside the
    plain version and the bytes bound (2*E*d plus the zeroed rows at
-   3.35 TB/s); then the ``-c 64`` rep's 256 rounds at d=2048, each
+   3.35 TB/s), the d=2048 launch on the wide-row engine and equal to the
+   persistent grid's arena; beside that pass (a) ``copy_`` of one 8.59 GB
+   arena into another (``library_ms``), (b)-(c) the persistent grid on
+   identity and Theta tables, (d) the wide-row engine on both, and both
+   engines on 4,096-262,144 of its rows, where the rule's fewest rows lie;
+   then the ``-c 64`` rep's 256 rounds at d=2048, each
    launched alone (its own device time from the profiler's kernel
    records, and its bound), the rep as the main path issues them (one
    many-round launch, its rounds fenced inside the kernel) and as one
@@ -3648,7 +3653,16 @@ def phase_deliver_rows(dev) -> dict:
     too, so its zero runs are applied) and against the gather and
     ``index_put_`` into a zeroed arena; timed (CUDA graph and eager)
     beside the plain version (eager) and the bytes bound: 2*E*d plus the
-    zeroed rows at 3.35 TB/s. Then the Theta script's ``-c 64`` (256
+    zeroed rows at 3.35 TB/s; the d=2048 launch is the wide-row engine's
+    (``deliver_rows.wide_launches``), the d=256 one the persistent grid's.
+    Beside the d=2048 pass, CUDA events over 10 back-to-back launches, in
+    turns, twice: (a) ``Tensor.copy_`` of one 8.59 GB arena into another
+    (``library_ms``; the port never calls it), (b) the persistent grid on
+    identity tables, (c) on the Theta tables, (d) the wide-row engine on
+    both, each as ms and as a share of 3.35 TB/s; the two engines on the
+    Theta tables' first n rows, back to back, where the rule's fewest rows
+    lie; the persistent grid's arena == the wide-row engine's. Then the
+    Theta script's ``-c 64`` (256
     rounds) at d=2048: each round's own device time, launched alone after
     a synchronize, from the profiler's kernel records (a record of a
     launch back to back would also hold its wait for the previous round:
@@ -3665,15 +3679,18 @@ def phase_deliver_rows(dev) -> dict:
     launch held against both the rounds and the plain version."""
     import warnings
 
+    import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from tpu_aggcomm_torch.backends.deliver_rows import (arena_launcher,
+    from tpu_aggcomm_torch.backends.deliver_rows import (_deliver_rows_on,
+                                                         arena_launcher,
                                                          deliver_rounds,
                                                          deliver_rows,
                                                          deliver_rounds_plain,
                                                          deliver_rows_plain,
+                                                         row_tables,
                                                          rounds_plan)
     from tpu_aggcomm_torch.backends.torch_shard import TorchShardBackend
     from tpu_aggcomm_torch.core.methods import compile_method
@@ -3704,6 +3721,58 @@ def phase_deliver_rows(dev) -> dict:
     def bound_ms(n_rows, zero_rows, d):
         return (2 * n_rows * d + zero_rows * d) / HBM_BYTES_PER_S * 1e3
 
+    def engine_readings(send, recv, tabs, zero):
+        """Readings (a)-(d) at the Theta pass and the two engines on the
+        first n rows of its tables (ms, and shares of 3.35 TB/s)."""
+        n_rows = tabs.n_rows
+        ident = row_tables(np.arange(n_rows), np.arange(n_rows), F=F, Fs=Fs,
+                           device=dev)
+        a_src, a_dst = send[:n_rows], recv[:n_rows]
+        runs = {"library": lambda: a_dst.copy_(a_src),
+                "persistent_ident": lambda: _deliver_rows_on(
+                    "persistent", send, recv, ident),
+                "persistent": lambda: _deliver_rows_on("persistent", send,
+                                                       recv, tabs, zero),
+                "wide_ident": lambda: _deliver_rows_on("wide", send, recv,
+                                                       ident),
+                "wide": lambda: _deliver_rows_on("wide", send, recv, tabs,
+                                                 zero)}
+        ms = {k: [] for k in runs}
+        for _turn in range(2):
+            for k, fn in runs.items():
+                ms[k].append(cuda_ms(fn, 10, 2))
+        bound = bound_ms(n_rows, 0, 2048)
+        got = {f"{k}_ms": v for k, v in ms.items()}
+        got.update({f"{k}_peak": [bound / m for m in v]
+                    for k, v in ms.items()})
+        got["library_ms"] = min(ms["library"])
+        del ident
+        sweep = []
+        for n_sub in (4096, 16384, 32768, 65536, 262144):
+            sub = row_tables(tabs.src[:n_sub], tabs.dst[:n_sub], F=F, Fs=Fs,
+                             device=dev)
+            sweep.append(dict(rows=n_sub, **{
+                f"{e}_us": cuda_ms(lambda e=e: _deliver_rows_on(
+                    e, send, recv, sub), 50, 5) * 1e3
+                for e in ("persistent", "wide")}))
+            del sub
+        got["sweep"] = sweep
+        print("# deliver_rows readings at the Theta pass (CUDA events over "
+              "10 launches, two turns; ms, share of 3.35 TB/s): "
+              + "; ".join(f"{lab} " + ", ".join(
+                  f"{m:.4f} ({bound / m:.3f})" for m in ms[k])
+                  for lab, k in (("(a) copy_", "library"),
+                                 ("(b) persistent identity",
+                                  "persistent_ident"),
+                                 ("(c) persistent Theta", "persistent"),
+                                 ("(d) wide identity", "wide_ident"),
+                                 ("(d) wide Theta", "wide"))), flush=True)
+        for r in sweep:
+            print(f"# deliver_rows the first {r['rows']} Theta rows, back to "
+                  f"back: persistent {r['persistent_us']:.2f} us, wide "
+                  f"{r['wide_us']:.2f} us", flush=True)
+        return got
+
     built, build_s = build(999_999_999)
     F, Fs = built.F, built.Fs
     (_r, tab, _nbar), = built.rounds
@@ -3712,7 +3781,10 @@ def phase_deliver_rows(dev) -> dict:
     for d in (2048, 256):
         w = d // 4
         send = random_send(Fs, w)
+        wide = deliver_rows.wide_launches
         got = deliver_rows(send, poisoned(F, w), tabs, zero)
+        check(deliver_rows.wide_launches - wide == (d == 2048),
+              f"deliver_rows d={d}: the launch took the wrong engine")
         want = deliver_rows_plain(
             send, torch.full((F, w), -1, dtype=torch.int32, device=dev),
             tabs, zero)
@@ -3720,6 +3792,12 @@ def phase_deliver_rows(dev) -> dict:
         err = max_abs_err(got, want)
         check(err == 0 and torch.equal(got, want),
               f"deliver_rows d={d}: kernel != plain")
+        if d == 2048:
+            other = _deliver_rows_on("persistent", send, poisoned(F, w),
+                                     tabs, zero)
+            check(torch.equal(other, want), "deliver_rows d=2048: the "
+                  "persistent grid's arena != the wide-row engine's")
+            del other
         want.zero_()
         deliver_rows_plain(send, want, tabs)
         check(torch.equal(got, want), f"deliver_rows d={d}: kernel != the "
@@ -3736,6 +3814,8 @@ def phase_deliver_rows(dev) -> dict:
                        send, got, tabs, zero), 3, 1),
                    bound_ms=bound_ms(tabs.n_rows, zero.rows, d))
         row["roofline"] = row["bound_ms"] / row["ms"]
+        if d == 2048:
+            row.update(engine_readings(send, got, tabs, zero))
         out[d] = row
         print(f"# deliver_rows n={n} a={a} d={d} unthrottled: "
               f"{tabs.n_rows} rows copied, {zero.rows} zeroed; == plain "
@@ -3908,13 +3988,15 @@ def phase_tam_relay(dev) -> dict:
     0xFF too), and the delivered arena against m=1's (m=2's) one-launch
     rep of the same send. At the Theta job's p64 deployment (n=16384
     a=256 ``-p 64`` d=2048, m=15): the build's seconds, the delivered
-    arena against the plain hops' and m=1's rep, the peak memory of a
-    rep, the rep by CUDA events over back-to-back reps, and each hop
-    alone, against its bound (2*E*d at 3.35 TB/s, and the zeroed trash
+    arena (the three hops on the wide-row engine, back to back) against
+    the plain hops' and m=1's rep, the peak memory of a rep, the rep by
+    CUDA events over back-to-back reps, and each hop alone on each
+    engine, against its bound (2*E*d at 3.35 TB/s, and the zeroed trash
     row in P4/P5's)."""
     import torch
 
-    from tpu_aggcomm_torch.backends.deliver_rows import (deliver_rows,
+    from tpu_aggcomm_torch.backends.deliver_rows import (_deliver_rows_on,
+                                                         deliver_rows,
                                                          deliver_rows_plain,
                                                          row_launcher)
     from tpu_aggcomm_torch.backends.torch_shard import TorchShardBackend
@@ -3988,9 +4070,12 @@ def phase_tam_relay(dev) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
+    wide = deliver_rows.wide_launches
     got = built.rep(send)
     torch.cuda.synchronize()
     rep_peak = torch.cuda.max_memory_allocated(dev) - base
+    check(deliver_rows.wide_launches - wide == 3, "tam_relay Theta p64: "
+          "the three hops did not all take the wide-row engine")
     (want,) = plain_hops(built, send, keep=False)
     check(torch.equal(got, want), "tam_relay Theta p64: the relay's arena "
           "!= its plain hops'")
@@ -4002,17 +4087,20 @@ def phase_tam_relay(dev) -> dict:
     rep_ms = cuda_ms(lambda: built.rep(send), 10, 2)
     arenas = [send, torch.empty((E, w), dtype=torch.int32, device=dev),
               torch.empty((E, w), dtype=torch.int32, device=dev), got]
-    hop_ms, bound_ms = [], []
+    hop_ms, persistent_ms, bound_ms = [], [], []
     for k, tabs in enumerate(built.relay, 1):
         zero = built.zero if k == 3 else None
         src, dst = arenas[k - 1], arenas[k]
         issue = row_launcher(tabs, zero, send_shape=tuple(src.shape),
                              recv_shape=tuple(dst.shape), dtype=torch.int32)
         hop_ms.append(cuda_ms(lambda: issue(src, dst), 10, 2))
+        persistent_ms.append(cuda_ms(lambda: _deliver_rows_on(
+            "persistent", src, dst, tabs, zero), 10, 2))
         bound_ms.append((2 * tabs.n_rows * d + (zero.rows if zero else 0)
                          * d) / HBM_BYTES_PER_S * 1e3)
     theta = dict(shape=[16384, 256, d, 64], slabs=E, build_s=build_s,
-                 rep_ms=rep_ms, hop_ms=hop_ms, hop_bound_ms=bound_ms,
+                 rep_ms=rep_ms, hop_ms=hop_ms,
+                 hop_persistent_ms=persistent_ms, hop_bound_ms=bound_ms,
                  bound_ms=sum(bound_ms), roofline=sum(bound_ms) / rep_ms,
                  hop_roofline=[b / h for b, h in zip(bound_ms, hop_ms)],
                  rep_peak_bytes=rep_peak)
@@ -4024,7 +4112,11 @@ def phase_tam_relay(dev) -> dict:
           f"{theta['bound_ms']:.3f} ms; hops alone "
           + ", ".join(f"{h:.3f} ms ({100 * b / h:.2f}%)"
                       for h, b in zip(hop_ms, bound_ms))
-          + f"; a rep allocates {rep_peak / 1e9:.2f} GB at its peak",
+          + " on the wide-row engine, "
+          + ", ".join(f"{h:.3f} ms ({100 * b / h:.2f}%)"
+                      for h, b in zip(persistent_ms, bound_ms))
+          + f" on the persistent grid; a rep allocates {rep_peak / 1e9:.2f} "
+          f"GB at its peak",
           flush=True)
     del s, built, send, got, arenas
     torch.cuda.empty_cache()
@@ -4325,16 +4417,18 @@ def main() -> int:
                for r in delay[1:]],
         batched=serve["delay"]))
     # torch_shard's round on one card replaces an XLA gather-scatter
-    # fusion, not a pallas_call; its row is d=2048 at the Theta flagship,
-    # d=256 under "narrow", the -c 64 rounds under "c64"; launches are
-    # the torch_shard CLI runs' (CUDA-graph replays included)
+    # fusion, not a pallas_call; its row is d=2048 at the Theta flagship
+    # (its library_ms: copy_ of the same bytes between two arenas, which
+    # the port never calls), d=256 under "narrow", the -c 64 rounds under
+    # "c64"; launches are the torch_shard CLI runs' (CUDA-graph replays
+    # included)
     wide = deliver[2048]
     kernels.append(dict(
         wide, name="deliver_rows", route="cuda",
         source="tpu_aggcomm_torch/csrc/deliver_rows.cu",
         replaces="tpu_aggcomm/backends/jax_shard.py:70",
         launches=shard["counts"]["deliver_rows"], bound_by="bytes",
-        library_ms=None, us_per_rep=wide["ms"] * 1e3,
+        us_per_rep=wide["ms"] * 1e3,
         matches_plain=wide["max_abs_err"] == 0
         and deliver[256]["max_abs_err"] == 0,
         narrow=deliver[256], c64=deliver["c64"], relay=relay["theta"]))

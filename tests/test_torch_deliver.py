@@ -393,3 +393,72 @@ def test_check_fence_raises_the_record_and_clears_it():
         dr.check_fence(tabs)
     assert tabs.sync.tolist() == [0, 0, 0, 0]
     dr.check_fence(tabs)
+
+
+# The one-round launch's two grids on the card: the rule that sends a
+# launch to the wide-row engine (csrc/deliver_rows.cu's wide_engine), by
+# which the wrapper counts ``wide_launches``. On the CPU nothing launches.
+
+@pytest.mark.parametrize("lane,row_bytes,wide", [
+    (16, 2048, True),                   # a Theta pass, TAM's hops
+    (16, 2064, True),                   # rows of a chunk and a lane
+    (16, 4096, True),
+    (16, 1 << 20, True),
+    (16, 2032, False),                  # under 2 KB
+    (16, 256, False),                   # the d=256 flagship
+    (16, 16, False),
+    (4, 2048, False),                   # 4-byte lanes
+    (4, 2052, False),
+    (1, 4097, False),
+    (1, 2048, False),
+    (4, 1 << 20, False),
+])
+def test_wide_engine_rule(lane, row_bytes, wide):
+    assert dr.wide_engine(lane, row_bytes) is wide
+
+
+@pytest.mark.parametrize("send,recv,row_bytes,lane", [
+    (0, 0, 2048, 16), (512, 4096, 2064, 16), (1 << 40, 1 << 36, 4096, 16),
+    (4, 0, 2048, 4), (0, 8, 2048, 4), (16, 32, 2052, 4),
+    (0, 0, 2050, 1), (2, 0, 2048, 1),
+])
+def test_lane_bytes_follows_the_row_width_and_both_addresses(send, recv,
+                                                             row_bytes, lane):
+    assert dr.lane_bytes(send, recv, row_bytes) == lane
+
+
+def test_wide_launches_stay_zero_on_the_cpu():
+    """A round the card would send to the wide-row engine (4,096 rows of
+    2048 bytes) is the plain version on the CPU through every issuer, and
+    no counter moves; the named-grid launch refuses the CPU by name."""
+    n, d = 4096, 2048
+    rng = np.random.default_rng(26)
+    send = torch.from_numpy(rng.integers(0, 256, (n, d), dtype=np.uint8))
+    perm = rng.permutation(n)
+    t = dr.row_tables(np.arange(n), perm, F=n + 1, Fs=n, device="cpu")
+    z = dr.zero_runs([(n, n + 1)], "cpu")
+    want = torch.zeros((n + 1, d), dtype=torch.uint8)
+    want[torch.from_numpy(perm)] = send
+    counts = (dr.deliver_rows.launches, dr.deliver_rows.wide_launches)
+    issuers = (lambda recv: dr.deliver_rows(send, recv, t, z),
+               lambda recv: dr.arena_launcher(send, recv)(t, z),
+               lambda recv: dr.row_launcher(
+                   t, z, send_shape=(n, d), recv_shape=(n + 1, d),
+                   dtype=torch.uint8)(send, recv))
+    for issue in issuers:
+        recv = torch.full((n + 1, d), 0xFF, dtype=torch.uint8)
+        issue(recv)
+        assert torch.equal(recv, want)
+    assert (dr.deliver_rows.launches, dr.deliver_rows.wide_launches) == counts
+    with pytest.raises(ValueError, match="on the card"):
+        dr._deliver_rows_on("wide", send, recv, t, z)
+
+
+def test_deliver_rows_on_names_its_engines():
+    send = torch.zeros((4, 512), dtype=torch.int32)
+    t = dr.row_tables(np.array([0]), np.array([1]), F=5, Fs=4, device="cpu")
+    for grid in ("bulk", "", None):
+        with pytest.raises(ValueError, match="persistent"):
+            dr._deliver_rows_on(grid, send, torch.zeros((5, 512),
+                                                        dtype=torch.int32),
+                                t)

@@ -1387,11 +1387,175 @@ def test_deliver_rows_arena_past_four_gigabytes(cuda):
     assert built.F * send.shape[1] * 4 > 2 ** 32
     (_r, pk, sc, _nbar), = b._mesh_layout(s)[1]
     _poison(built.F * send.shape[1] * 4, cuda)
+    from tpu_aggcomm_torch.backends.deliver_rows import deliver_rows
+    wide = deliver_rows.wide_launches
     got = built.rep(send)
+    assert deliver_rows.wide_launches - wide == 1     # 1,048,576 rows of 4 KB
     want = torch.zeros_like(got)
     want[torch.as_tensor(sc.reshape(-1), device=cuda).long()] = send[
         torch.as_tensor(np.maximum(pk, 0).reshape(-1), device=cuda).long()]
     assert torch.equal(got, want)
+
+
+# The one-round launch's wide-row engine (csrc/deliver_rows.cu: the
+# one-round kernel on a grid of a warp for every chunk): launches of rows
+# of at least 2 KB in 16-byte lanes, by the rule both the C entry and the
+# wrapper read (deliver_rows.wide_engine). Each case is held byte for byte
+# against deliver_rows_plain on the card, every receive arena filled with
+# 0xAB first, so a row the launch should have left or zeroed shows.
+
+def _wide_round(rows: int, row_bytes: int, cuda, seed: int, spare: int = 3):
+    """A random send arena of ``rows + 7`` rows and a round copying
+    ``rows`` of them, in random order, into a receive arena of ``rows +
+    spare`` rows; the arena's unwritten rows (the trash row and ``spare -
+    1`` others) as zero runs."""
+    from tpu_aggcomm_torch.backends import deliver_rows as dr
+    rng = np.random.default_rng(seed)
+    Fs, F = rows + 7, rows + spare
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    send = torch.randint(0, 256, (Fs, row_bytes), dtype=torch.uint8,
+                         device=cuda, generator=gen)
+    src = rng.permutation(Fs)[:rows]
+    dst = rng.permutation(F - 1)[:rows]
+    tabs = dr.row_tables(src, dst, F=F, Fs=Fs, device=cuda)
+    zero = dr.zero_runs(dr.unwritten_runs(F, [(dst, 0)]), cuda)
+    return send, tabs, zero, F
+
+
+def _filled(rows: int, row_bytes: int, cuda) -> torch.Tensor:
+    return torch.full((rows, row_bytes), 0xAB, dtype=torch.uint8,
+                      device=cuda)
+
+
+@pytest.mark.parametrize("zeroed", [True, False])
+@pytest.mark.parametrize("rows", [4_096, 8_448, 700_001])
+@pytest.mark.parametrize("row_bytes", [2048, 2064, 4096])
+def test_wide_engine_equals_plain(cuda, row_bytes, rows, zeroed):
+    """Rows of 2048, 2064 (a chunk and one lane) and 4096 bytes; 4,096
+    and 8,448 rows (about what the warps an H100 keeps resident copy at
+    once, where the two grids are alike or nearly) and 700,001, with and
+    without zero runs: the rule's launch, and each grid named, equal the
+    plain version; the counter follows the rule."""
+    from tpu_aggcomm_torch.backends import deliver_rows as dr
+    send, tabs, zero, F = _wide_round(rows, row_bytes, cuda,
+                                      rows + row_bytes)
+    z = zero if zeroed else None
+    want = dr.deliver_rows_plain(send, _filled(F, row_bytes, cuda), tabs, z)
+    recv = _filled(F, row_bytes, cuda)
+    assert dr.wide_engine(dr.lane_bytes(send.data_ptr(), recv.data_ptr(),
+                                        row_bytes), row_bytes)
+    launches, wide = dr.deliver_rows.launches, dr.deliver_rows.wide_launches
+    dr.deliver_rows(send, recv, tabs, z)
+    torch.cuda.synchronize()
+    assert torch.equal(recv, want)
+    assert dr.deliver_rows.launches - launches == 1
+    assert dr.deliver_rows.wide_launches - wide == 1
+    for grid in ("wide", "persistent"):
+        recv.fill_(0xAB)
+        dr._deliver_rows_on(grid, send, recv, tabs, z)
+        torch.cuda.synchronize()
+        assert torch.equal(recv, want), grid
+    assert dr.deliver_rows.launches - launches == 3
+    assert dr.deliver_rows.wide_launches - wide == 2
+
+
+def test_wide_engine_arena_past_four_gigabytes(cuda):
+    """2,200,000 rows of 2048 bytes (4.5 GB arenas, byte offsets past
+    2^32), zero runs included: equal to the plain version."""
+    from tpu_aggcomm_torch.backends import deliver_rows as dr
+    rows, d = 2_200_000, 2048
+    send, tabs, zero, F = _wide_round(rows, d, cuda, 4)
+    assert F * d > 2 ** 32
+    recv = _filled(F, d, cuda)
+    wide = dr.deliver_rows.wide_launches
+    dr.deliver_rows(send, recv, tabs, zero)
+    assert dr.deliver_rows.wide_launches - wide == 1
+    want = dr.deliver_rows_plain(send, _filled(F, d, cuda), tabs, zero)
+    assert torch.equal(recv, want)
+
+
+def test_wide_engine_three_dependent_launches_back_to_back(cuda):
+    """Three programmatic dependent launches with no synchronize between
+    them, each reading what the one before wrote (wide, persistent, wide):
+    the last arena equals the plain version's three rounds."""
+    from tpu_aggcomm_torch.backends import deliver_rows as dr
+    rows, d = 300_000, 2048
+    rng = np.random.default_rng(3)
+    arenas = [torch.randint(0, 256, (rows, d), dtype=torch.uint8,
+                            device=cuda)]
+    arenas += [_filled(rows, d, cuda) for _ in range(3)]
+    hops = [dr.row_tables(np.arange(rows), rng.permutation(rows), F=rows,
+                          Fs=rows, device=cuda) for _ in range(3)]
+    for k, grid in enumerate(("wide", "persistent", "wide")):
+        dr._deliver_rows_on(grid, arenas[k], arenas[k + 1], hops[k])
+    torch.cuda.synchronize()
+    want = arenas[0]
+    for t in hops:
+        want = dr.deliver_rows_plain(want, _filled(rows, d, cuda), t)
+    assert torch.equal(arenas[3], want)
+
+
+def test_wide_engine_in_a_cuda_graph_replays(cuda):
+    """The rule's launch captured in a CUDA graph (after an eager
+    warm-up): each replay into a refilled arena equals the plain version;
+    the capture counts one wide launch, the replays none."""
+    from tpu_aggcomm_torch.backends import deliver_rows as dr
+    send, tabs, zero, F = _wide_round(200_000, 2048, cuda, 5)
+    recv = _filled(F, 2048, cuda)
+    want = dr.deliver_rows_plain(send, _filled(F, 2048, cuda), tabs, zero)
+    dr.deliver_rows(send, recv, tabs, zero)         # warm-up, eager
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    wide = dr.deliver_rows.wide_launches
+    with torch.cuda.stream(side), torch.cuda.graph(graph):
+        dr.deliver_rows(send, recv, tabs, zero)
+    torch.cuda.current_stream().wait_stream(side)
+    assert dr.deliver_rows.wide_launches - wide == 1
+    for _ in range(3):
+        recv.fill_(0xAB)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(recv, want)
+    assert dr.deliver_rows.wide_launches - wide == 1
+
+
+@pytest.mark.parametrize("case", ["4-byte aligned", "2032-byte rows",
+                                  "bound 4-byte aligned",
+                                  "bound 2052-byte rows"])
+def test_narrow_or_misaligned_rows_take_the_persistent_grid(cuda, case):
+    """Arenas 4 bytes off a 16-byte address, rows under 2 KB, and rows of
+    2052 bytes (4-byte lanes), through deliver_rows and a bound launch,
+    take the persistent grid at 200,000 rows (the counter says so), equal
+    to the plain version; the wide-row engine refuses lanes under 16
+    bytes by name."""
+    from tpu_aggcomm_torch.backends import deliver_rows as dr
+    rows = 200_000
+    d = {"2032-byte rows": 2032, "bound 2052-byte rows": 2052}.get(case, 2048)
+    send, tabs, zero, F = _wide_round(rows, d, cuda, 6)
+    if case.endswith("aligned"):
+        block = _filled(F * d + 16, 1, cuda).view(-1)
+        recv = block[4:4 + F * d].view(F, d)
+    else:
+        recv = _filled(F, d, cuda)
+    lane = dr.lane_bytes(send.data_ptr(), recv.data_ptr(), d)
+    assert lane == (16 if case == "2032-byte rows" else 4)
+    assert not dr.wide_engine(lane, d)
+    want = dr.deliver_rows_plain(send, _filled(F, d, cuda), tabs, zero)
+    launches, wide = dr.deliver_rows.launches, dr.deliver_rows.wide_launches
+    if case.startswith("bound"):
+        dr.row_launcher(tabs, zero, send_shape=tuple(send.shape),
+                        recv_shape=(F, d), dtype=torch.uint8)(send, recv)
+    else:
+        dr.deliver_rows(send, recv, tabs, zero)
+    torch.cuda.synchronize()
+    assert torch.equal(recv, want)
+    assert dr.deliver_rows.launches - launches == 1
+    assert dr.deliver_rows.wide_launches == wide
+    if lane != 16:
+        with pytest.raises(RuntimeError, match="cudaError"):
+            dr._deliver_rows_on("wide", send, recv, tabs, zero)
 
 
 # The many-round launch (csrc/deliver_rows.cu, aggcomm_deliver_rounds): a

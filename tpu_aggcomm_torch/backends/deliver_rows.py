@@ -31,7 +31,11 @@ its arena with ``torch.empty``.
   :func:`deliver_rows_plain`, the kernel's contract in plain torch.
   :func:`row_launcher` binds one round's tables instead, once, for any
   arenas of given shapes (each hop of ``torch_shard``'s TAM relay);
-  ``deliver_rows.relay_hops`` counts the hops the relay issues.
+  ``deliver_rows.relay_hops`` counts the hops the relay issues. A
+  launch of rows of at least :data:`WIDE_ROW_BYTES` bytes in 16-byte
+  lanes takes the kernel's wide-row engine, a grid of a warp for every
+  chunk (:func:`wide_engine`, the C entry's rule), counted in
+  ``deliver_rows.wide_launches``.
 - :func:`deliver_rounds`: the first ``n`` rounds of a :class:`RoundTables`
   in ONE cooperative launch, each round fenced from the next inside the
   kernel (a rep of many rounds with no barrier token between them). It
@@ -58,10 +62,16 @@ __all__ = ["RowTables", "RoundTables", "ZeroRuns", "DeliverFenceError",
            "row_tables", "round_tables", "unwritten_runs", "zero_runs",
            "deliver_rows", "deliver_rows_plain", "arena_launcher",
            "row_launcher", "deliver_rounds", "deliver_rounds_plain",
-           "rounds_launcher", "rounds_plan", "check_fence"]
+           "rounds_launcher", "rounds_plan", "check_fence", "lane_bytes",
+           "wide_engine"]
 
 #: rows, table entries and tasks of one launch stay below this (int32)
 INT32_LIMIT = 2 ** 31
+#: the wide-row engine's narrowest row (``csrc/deliver_rows.cu``:
+#: ``kWideRowBytes``)
+WIDE_ROW_BYTES = 2048
+#: :func:`_deliver_rows_on`'s grids, as the C entry numbers them
+_GRIDS = {"persistent": 0, "wide": 1}
 #: how long one wait of a CTA at a round fence may last
 TIMEOUT_S = 10.0
 
@@ -69,6 +79,25 @@ TIMEOUT_S = 10.0
 class DeliverFenceError(RuntimeError):
     """A CTA of the many-round launch waited past the timeout at a round
     fence; the rep did not complete."""
+
+
+def lane_bytes(send_ptr: int, recv_ptr: int, row_bytes: int) -> int:
+    """The lane width the kernel moves rows of ``row_bytes`` in between
+    arenas at these addresses: 16, 4 or 1 bytes (``rows.cuh``'s
+    ``lane_size``)."""
+    addr = send_ptr | recv_ptr
+    if row_bytes % 16 == 0 and addr % 16 == 0:
+        return 16
+    if row_bytes % 4 == 0 and addr % 4 == 0:
+        return 4
+    return 1
+
+
+def wide_engine(lane: int, row_bytes: int) -> bool:
+    """Whether a one-round launch of rows of ``row_bytes`` in ``lane``-byte
+    lanes takes the wide-row engine: the C entry's rule (``wide_engine``
+    in ``csrc/deliver_rows.cu``)."""
+    return lane == 16 and row_bytes >= WIDE_ROW_BYTES
 
 
 def _check_rows(what: str, rows: int) -> None:
@@ -266,7 +295,8 @@ def deliver_rounds_plain(send: torch.Tensor, recv: torch.Tensor,
 @functools.cache
 def _c_lib():
     """The kernel's C entry points, built and loaded at first use: one
-    round, the many-round launch and its plan."""
+    round, the many-round launch and its plan, and one round on a named
+    grid."""
     from tpu_aggcomm_torch.csrc.build import load
     lib = load()
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -279,7 +309,10 @@ def _c_lib():
     plan = lib.aggcomm_deliver_rounds_plan
     plan.argtypes = [p, p, p, p]
     plan.restype = i
-    return fn, rounds, plan
+    on = lib.aggcomm_deliver_rows_on
+    on.argtypes = [i, p, p, p, p, ll, p, p, i, ll, ll, p, i]
+    on.restype = i
+    return fn, rounds, plan, on
 
 
 def _check_arenas(send: torch.Tensor, recv: torch.Tensor) -> None:
@@ -347,8 +380,9 @@ def arena_launcher(send: torch.Tensor, recv: torch.Tensor):
     fn = _c_lib()[0]
     dev = _dev_index(device)
     head = (send.data_ptr(), recv.data_ptr())
-    tail = (recv.shape[1] * recv.element_size(),
-            torch.cuda.current_stream(dev).cuda_stream, dev)
+    row_bytes = recv.shape[1] * recv.element_size()
+    lane = lane_bytes(*head, row_bytes)
+    tail = (row_bytes, torch.cuda.current_stream(dev).cuda_stream, dev)
 
     def issue(tabs: RowTables | None, zero: ZeroRuns | None = None) -> None:
         zero = zero or NO_ZERO
@@ -356,13 +390,20 @@ def arena_launcher(send: torch.Tensor, recv: torch.Tensor):
         targs = tabs.args if tabs is not None else (None, None, 0)
         if not (targs[2] or zero.rows):
             return
-        rc = fn(*head, *targs, *zero.args, *tail)
-        if rc != 0:
-            raise RuntimeError(f"deliver_rows kernel launch failed: "
-                               f"cudaError {rc}")
-        deliver_rows.launches += 1
+        _launched_round(fn(*head, *targs, *zero.args, *tail),
+                        wide_engine(lane, row_bytes))
 
     return issue
+
+
+def _launched_round(rc: int, wide: bool) -> None:
+    """Raise on a failed one-round launch, else count it (and, on the
+    wide-row engine, in ``wide_launches``)."""
+    if rc != 0:
+        raise RuntimeError(f"deliver_rows kernel launch failed: "
+                           f"cudaError {rc}")
+    deliver_rows.launches += 1
+    deliver_rows.wide_launches += wide
 
 
 def row_launcher(tabs: RowTables, zero: ZeroRuns | None, *,
@@ -390,7 +431,8 @@ def row_launcher(tabs: RowTables, zero: ZeroRuns | None, *,
     _check_tables(device, send_shape[0], recv_shape[0], tabs, zero)
     index = _dev_index(device)
     fn, stream = _c_lib()[0], torch._C._cuda_getCurrentRawStream
-    args = (*tabs.args, *zero.args, recv_shape[1] * dtype.itemsize)
+    row_bytes = recv_shape[1] * dtype.itemsize
+    args = (*tabs.args, *zero.args, row_bytes)
     empty = not (tabs.n_rows or zero.rows)
 
     def issue(send: torch.Tensor, recv: torch.Tensor) -> None:
@@ -402,11 +444,9 @@ def row_launcher(tabs: RowTables, zero: ZeroRuns | None, *,
             return
         if empty:
             return
-        rc = fn(send.data_ptr(), recv.data_ptr(), *args, stream(index), index)
-        if rc != 0:
-            raise RuntimeError(f"deliver_rows kernel launch failed: "
-                               f"cudaError {rc}")
-        deliver_rows.launches += 1
+        sp, rp = send.data_ptr(), recv.data_ptr()
+        _launched_round(fn(sp, rp, *args, stream(index), index),
+                        wide_engine(lane_bytes(sp, rp, row_bytes), row_bytes))
 
     return issue
 
@@ -414,6 +454,33 @@ def row_launcher(tabs: RowTables, zero: ZeroRuns | None, *,
 deliver_rows.launches = 0
 deliver_rows.fused_rounds = 0
 deliver_rows.relay_hops = 0
+deliver_rows.wide_launches = 0
+
+
+def _deliver_rows_on(grid: str, send: torch.Tensor, recv: torch.Tensor,
+                     tabs: RowTables | None, zero: ZeroRuns | None = None
+                     ) -> torch.Tensor:
+    """:func:`deliver_rows` of CUDA arenas on the grid ``grid`` names
+    (``"persistent"``, or ``"wide"``, the wide-row engine's, which needs
+    16-byte lanes), whatever :func:`wide_engine` picks: the two side by
+    side in ``chip_smoke.py`` and the tests. Counted as :func:`deliver_rows`
+    counts. Returns ``recv``."""
+    if grid not in _GRIDS or send.device.type != "cuda":
+        raise ValueError(f"_deliver_rows_on: grid {grid!r} on "
+                         f"{send.device}; one of {sorted(_GRIDS)} on the "
+                         f"card")
+    zero = zero or NO_ZERO
+    _check_arenas(send, recv)
+    _check_tables(send.device, send.shape[0], recv.shape[0], tabs, zero)
+    targs = tabs.args if tabs is not None else (None, None, 0)
+    if not (targs[2] or zero.rows):
+        return recv
+    dev = _dev_index(send.device)
+    _launched_round(_c_lib()[3](
+        _GRIDS[grid], send.data_ptr(), recv.data_ptr(), *targs, *zero.args,
+        recv.shape[1] * recv.element_size(),
+        torch.cuda.current_stream(dev).cuda_stream, dev), grid == "wide")
+    return recv
 
 
 def _dev_index(device) -> int:

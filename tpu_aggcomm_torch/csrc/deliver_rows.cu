@@ -14,12 +14,14 @@
 // by CTAs after the copying ones, in the same launch: zeroed and copied
 // rows are disjoint, so nothing orders them.
 //
-// Two entries, one copy:
+// Two entries, one copy of a chunk (rows.cuh's copy_chunk):
 //
 //   - aggcomm_deliver_rows: one round, one launch. A rep of one round, or
 //     of rounds with barrier tokens between them, issues one a round; the
 //     stream orders the rounds, and no CTA waits on another CTA of its
-//     grid;
+//     grid. Its launch takes one of two grids, the persistent grid or
+//     the wide-row engine's, by the rule below; aggcomm_deliver_rows_on
+//     names one, for readings of the two side by side;
 //   - aggcomm_deliver_rounds: a rep of many rounds in one cooperative
 //     launch, its rounds in CSR form (round_ptr[R+1] over concatenated
 //     src_row and dst_row). The rounds stay distinct steps: after each
@@ -69,6 +71,33 @@
 //     would save). The last CTA to leave puts the fence's counter
 //     back to 0, so a launch needs no memset before it and a CUDA graph
 //     of it replays as it is;
+//   - a one-round launch of rows at least kWideRowBytes wide in 16-byte
+//     lanes takes the wide-row engine instead: the same kernel on a grid
+//     of a warp for every chunk, uncapped, so each warp copies ONE chunk
+//     and exits, the block scheduler hands chunks out in table order, and
+//     the rows in flight stay one window of the arenas wide. On an H100
+//     at the Theta pass (4,194,304 rows of 2048 bytes, CUDA events over
+//     10 launches) it moves a pass in 5.812-5.815 ms on the Theta tables
+//     and 5.679-5.684 ms on identity tables, 0.882 and 0.902 of 3.35
+//     TB/s, against 5.973-6.001 ms (0.855-0.859) for the persistent grid
+//     on either, whose warps drift apart over a pass; ATen's contiguous
+//     copy of the same bytes takes 5.645-5.647 ms (0.908). On this grid,
+//     read-only or plain loads, streaming or plain stores, two chunks a
+//     warp and CTAs of 64 to 1024 threads read within 0.6% of each other;
+//     on the persistent grid two or four chunks in flight a warp gained
+//     1.1-1.3% and L2 evict-first hints lost 0.7%. Rows move through
+//     registers: a ring of whole rows in shared memory filled and drained
+//     by bulk asynchronous copies (cp.async.bulk) read 0.87 at best,
+//     since each issuing thread's copies complete one after another (26.6
+//     ms a pass with one ring an SM, 5.90 ms with sixteen). No row count
+//     enters the rule: a launch whose tasks fit in the resident warps gets
+//     the same grid either way, and on the first n rows of the Theta
+//     tables, back to back, the persistent and the wide-row grid read 22.5
+//     and 22.7 us at 4,096 rows and 24.8 and 24.9 at 16,384 (a launch's
+//     latency), then 50.4 and 48.2 at 32,768, 97.2 and 93.3 at 65,536,
+//     376.4 and 365.4 at 262,144. The rule reads the lane width and the
+//     row width alone, and backends/deliver_rows.py's wide_engine is the
+//     same rule;
 //   - with a stamp buffer (diagnostic calls only; the main path passes
 //     null) thread 0 of each CTA of the many-round kernel writes
 //     %globaltimer at its start, after each round's copies, after each
@@ -91,6 +120,9 @@ constexpr int kRoundCtasPerSm = 4;   // its launch bound, and its cap
 constexpr unsigned kTile = 32 * kVpt;            // lane units a task moves
 constexpr long long kZeroCtaBytes = 128 * 1024;  // per zeroing CTA
 constexpr unsigned long long kMaxItems = 1ULL << 31;
+constexpr long long kWideRowBytes = 2048;  // the wide-row engine's least
+// which grid a one-round launch takes: by the rule, or as named
+constexpr int kByRule = -1, kPersistent = 0, kWide = 1;
 
 // One round's rows: send row src_row[i] -> receive row dst_row[i].
 struct Rows {
@@ -141,7 +173,10 @@ __device__ __forceinline__ void copy_wide(const Rows& r, unsigned w0,
   const unsigned tasks = r.n_rows * cpr;
   for (unsigned base = w0; base < tasks; base += 32 * step) {
     if (base != w0) lead = lead_of(r, base, step, cpr);
-    const unsigned left = (tasks - base + step - 1) / step;
+    // no sum wraps: the wide-row engine's step reaches `tasks`, so a warp
+    // steps on only while 32 more steps stay inside the tasks (a lane's
+    // entry past the tasks may wrap in lead_of, and goes unused)
+    const unsigned left = (tasks - base - 1) / step + 1;
     const unsigned n = left < 32u ? left : 32u;
     for (unsigned j = 0; j < n; ++j) {
       const unsigned t = base + j * step;
@@ -153,6 +188,7 @@ __device__ __forceinline__ void copy_wide(const Rows& r, unsigned w0,
           reinterpret_cast<T*>(r.recv + (long long)d * r.row_bytes),
           (t - e * cpr) * kTile + lane, units);
     }
+    if (left <= 32u) break;
   }
 }
 
@@ -386,15 +422,26 @@ long long zero_ctas(long long zero_rows, long long row_bytes, int sms) {
   return zero > sms ? sms : zero;
 }
 
-// The launch for these arguments: lane width, the copying CTAs (enough
-// for the tasks, at most what the card keeps resident) and the zeroing
-// CTAs after them.
+// Whether a one-round launch of rows of `row_bytes` in lanes of `lane`
+// bytes takes the wide-row engine.
+bool wide_engine(int lane, long long row_bytes) {
+  return lane == 16 && row_bytes >= kWideRowBytes;
+}
+
+// The launch for these arguments on `grid` (kByRule: as wide_engine
+// says): lane width, the copying CTAs and the zeroing CTAs after them.
+// The copying CTAs are enough for the tasks; on the persistent grid at
+// most what the card keeps resident, on the wide-row engine's (16-byte
+// lanes only) a warp for every task.
 cudaError_t make_plan(const void* send, const void* recv, long long row_bytes,
                       long long n_rows, long long zero_rows, int device,
-                      Plan* p) {
+                      int grid, Plan* p) {
   cudaError_t err =
       check_sizes(send, recv, row_bytes, n_rows, zero_rows, &p->lane);
   if (err != cudaSuccess) return err;
+  const bool wide = grid == kByRule ? wide_engine(p->lane, row_bytes)
+                                    : grid == kWide;
+  if (wide && p->lane != 16) return cudaErrorInvalidValue;
   p->fn = pick(p->lane);
   const unsigned long long tasks = tasks_of(n_rows, row_bytes / p->lane);
   int sms = 0, per_sm = 0;
@@ -403,7 +450,7 @@ cudaError_t make_plan(const void* send, const void* recv, long long row_bytes,
   const unsigned long long warps = kThreads / 32;
   unsigned long long copy = (tasks + warps - 1) / warps;
   const unsigned long long cap = (unsigned long long)per_sm * sms;
-  if (copy > cap) copy = cap;
+  if (!wide && copy > cap) copy = cap;
   p->copy_ctas = (int)copy;
   p->grid = (int)(copy + zero_ctas(zero_rows, row_bytes, sms));
   return cudaSuccess;
@@ -507,26 +554,16 @@ int launch_rounds(const RoundsBlock& b, const void* send, void* recv,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// One round. send: (Fs, row_bytes) bytes; recv: (F, row_bytes), any
-// contents in the rows this launch neither copies to nor zeroes.
-// src_row, dst_row: n_rows int32 rows, on the device; zero_start: Z int32
-// rows and zero_ptr: Z+1 int32 prefix row counts (null with Z = 0). No
-// launch when there is nothing to copy or zero. Returns the launch's
-// cudaError_t (0 on success).
-extern "C" int aggcomm_deliver_rows(const void* send, void* recv,
-                                    const int* src_row, const int* dst_row,
-                                    long long n_rows, const int* zero_start,
-                                    const int* zero_ptr, int n_zero_runs,
-                                    long long zero_rows, long long row_bytes,
-                                    void* stream, int device) {
+int launch_round(const void* send, void* recv, const int* src_row,
+                 const int* dst_row, long long n_rows, const int* zero_start,
+                 const int* zero_ptr, int n_zero_runs, long long zero_rows,
+                 long long row_bytes, void* stream, int device, int grid) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_zero_runs <= 0) zero_rows = 0;
   if (n_rows <= 0 && zero_rows <= 0) return 0;
   Plan p;
-  err = make_plan(send, recv, row_bytes, n_rows, zero_rows, device, &p);
+  err = make_plan(send, recv, row_bytes, n_rows, zero_rows, device, grid, &p);
   if (err != cudaSuccess) return (int)err;
   DeliverArgs a;
   a.rows.send = static_cast<const unsigned char*>(send);
@@ -553,6 +590,43 @@ extern "C" int aggcomm_deliver_rows(const void* send, void* recv,
   err = cudaLaunchKernelExC(&cfg, p.fn, args);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// One round. send: (Fs, row_bytes) bytes; recv: (F, row_bytes), any
+// contents in the rows this launch neither copies to nor zeroes.
+// src_row, dst_row: n_rows int32 rows, on the device; zero_start: Z int32
+// rows and zero_ptr: Z+1 int32 prefix row counts (null with Z = 0). No
+// launch when there is nothing to copy or zero. The grid is the rule's
+// (wide_engine). Returns the launch's cudaError_t (0 on success).
+extern "C" int aggcomm_deliver_rows(const void* send, void* recv,
+                                    const int* src_row, const int* dst_row,
+                                    long long n_rows, const int* zero_start,
+                                    const int* zero_ptr, int n_zero_runs,
+                                    long long zero_rows, long long row_bytes,
+                                    void* stream, int device) {
+  return launch_round(send, recv, src_row, dst_row, n_rows, zero_start,
+                      zero_ptr, n_zero_runs, zero_rows, row_bytes, stream,
+                      device, kByRule);
+}
+
+// The same round on the grid `grid` names, whatever the rule picks: 0 the
+// persistent grid, 1 the wide-row engine's (16-byte lanes only, else
+// cudaErrorInvalidValue). For side-by-side readings of the two grids and
+// their tests; the main path calls aggcomm_deliver_rows.
+extern "C" int aggcomm_deliver_rows_on(int grid, const void* send,
+                                       void* recv, const int* src_row,
+                                       const int* dst_row, long long n_rows,
+                                       const int* zero_start,
+                                       const int* zero_ptr, int n_zero_runs,
+                                       long long zero_rows,
+                                       long long row_bytes, void* stream,
+                                       int device) {
+  if (grid != kPersistent && grid != kWide) return cudaErrorInvalidValue;
+  return launch_round(send, recv, src_row, dst_row, n_rows, zero_start,
+                      zero_ptr, n_zero_runs, zero_rows, row_bytes, stream,
+                      device, grid);
 }
 
 // The first n_rounds rounds of a rep in one launch, from the tables a
