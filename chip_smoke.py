@@ -42,7 +42,12 @@ first failure (no phase's failure is caught):
    table-build seconds and both bounds (bytes; waves x the signal
    latency), its graph replays checked against the plain version, and at
    the README shape the split of a wave from rank 0's %globaltimer stamps
-   (post, wait) and the zeroing;
+   (post, wait) and the zeroing; last the bound rep
+   (``CudaDmaBackend.one_rep``) at the benchmark cell
+   ``theta_n1280_a2m_c64_dma``'s shape (n=1280 a=20 c=64 ``-p 64``, 2571
+   waves) held byte for byte against the plain version, its launch and
+   wave counts, its time and its stamp split, on the kernels line as
+   K3's ``theta_cell``;
 
    each kernel and plain version is timed twice: on the device alone (a
    CUDA graph of many calls, replayed) and as Python launches it, one
@@ -806,6 +811,71 @@ def k3_graph_check(send, tabs, plain, label: str) -> None:
         check(torch.equal(out, plain), f"K3 {label}: graph replay != plain")
 
 
+def k3_theta_cell(dev, signal_us: float, reps: int = 20) -> dict:
+    """K3's bound rep (``CudaDmaBackend.one_rep``) at the benchmark cell
+    ``theta_n1280_a2m_c64_dma``'s shape: m=1 at n=1280 a=20 d=2048 c=64,
+    64 ranks a node, lockstep. Held byte for byte against the plain
+    version into an arena it allocates itself, its launch and wave
+    counts read, then timed by CUDA events over ``reps`` bound reps back
+    to back, and split from rank 0's stamps (zeroing, posts, waits)."""
+    import torch
+
+    from tpu_aggcomm_torch.backends.cuda_dma import (CudaDmaBackend,
+                                                     check_protocol,
+                                                     dma_steps,
+                                                     dma_steps_plain,
+                                                     send_arena)
+    from tpu_aggcomm_torch.core.methods import compile_method
+    from tpu_aggcomm_torch.core.pattern import AggregatorPattern
+
+    s = compile_method(1, AggregatorPattern(
+        1280, 20, data_size=2048, comm_size=64, proc_node=64, placement=1))
+    t0 = time.perf_counter()
+    rep = CudaDmaBackend(device="cuda").one_rep(s)
+    build_s = time.perf_counter() - t0
+    tabs = rep.tables
+    send = send_arena(s.pattern, 0, dev)
+    plain = dma_steps_plain(send, tabs)
+    launches, waves = dma_steps.launches, dma_steps.waves
+    got = rep(send)
+    check_protocol(tabs)
+    err = max_abs_err(got, plain)
+    check(err == 0 and torch.equal(got, plain),
+          "K3 bound rep at the Theta cell's shape != plain")
+    counted = dict(launches=dma_steps.launches - launches,
+                   waves=dma_steps.waves - waves)
+    check(counted == dict(launches=1, waves=tabs.n_waves),
+          f"K3 bound rep counted {counted}, not one launch of "
+          f"{tabs.n_waves} waves")
+    del got, plain
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        rep(send)
+    stop.record()
+    stop.synchronize()
+    check_protocol(tabs)
+    ms = start.elapsed_time(stop) / reps
+    split = k3_stamp_split(send, tabs, ms)
+    row = dict(shape=[1280, 20, 2048, 64], proc_node=64,
+               steps=tabs.n_steps, waves=tabs.n_waves, max_abs_err=err,
+               counted=counted, build_s=build_s, eager_ms=ms,
+               us_per_wave=ms * 1e3 / tabs.n_waves,
+               chain_bound_ms=tabs.n_waves * signal_us / 1e3,
+               zero_rows=tabs.zero_rows, split=split)
+    print(f"K3 bound rep at the Theta cell (n=1280 a=20 c=64 -p 64): "
+          f"{tabs.n_waves} waves, == plain, {counted['launches']} launch "
+          f"of {counted['waves']} waves; {ms * 1e3:.3f} us a rep (events, "
+          f"{reps} back to back), {row['us_per_wave']:.3f} us/wave, "
+          f"wave chain {row['chain_bound_ms'] * 1e3:.3f} us; split: "
+          f"zeroing {split['zero_us']:.3f} us, posts "
+          f"{split['us_per_wave_post']:.3f} and waits "
+          f"{split['us_per_wave_wait']:.3f} us a wave, launch "
+          f"{split['launch_us']:.3f} us", flush=True)
+    return row
+
+
 def phase_k3(dev) -> dict:
     """K3 through cuda_dma and cuda_dma_conc: every stepped method (and
     m=13 -b 1) at the README shape, m=1 and m=18 at n=256 a=16 c=16 and
@@ -927,13 +997,16 @@ def phase_k3(dev) -> dict:
             del send, plain
         print(f"K3 {backend.name}: {len(cells)} cells verified and == "
               f"plain into a poisoned recv", flush=True)
+    theta = k3_theta_cell(dev, probe["us"])
     keep = ("shape", "steps", "waves", "ms", "eager_ms", "plain_ms",
             "plain_eager_ms", "us_per_wave", "bound_ms", "bound_by",
             "bytes_bound_ms", "chain_bound_ms")
-    return {name: dict(rows[(32, conc)], signal_latency_us=probe["us"],
-                       large=[{k: rows[(n, conc)][k] for k in keep}
-                              for n in (256, 1024)])
-            for name, conc in (("lockstep", False), ("concurrent", True))}
+    out = {name: dict(rows[(32, conc)], signal_latency_us=probe["us"],
+                      large=[{k: rows[(n, conc)][k] for k in keep}
+                             for n in (256, 1024)])
+           for name, conc in (("lockstep", False), ("concurrent", True))}
+    out["lockstep"]["theta_cell"] = theta
+    return out
 
 
 @contextlib.contextmanager

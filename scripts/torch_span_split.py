@@ -11,8 +11,14 @@ adds the port's recorder, a lean one (no manifest):
 
 - around the build, so the ``tables_s`` mark splits into the spans
   ``schedule.compile``, ``tables.edges`` and ``tables.rounds``
-  (``schedule_s``, ``edges_s``, ``round_tables_s``), and a TAM relay's
-  ``tables.relay`` (``relay_tables_s``);
+  (``schedule_s``, ``edges_s``, ``round_tables_s``), a TAM relay's
+  ``tables.relay`` (``relay_tables_s``) and ``cuda_dma``'s step program
+  ``tables.steps`` (``step_tables_s``);
+- around the warm-up and the window, the port's kernel counters that
+  moved in them
+  (``window_counters``: ``cuda_dma``'s ``dma_steps.launches``,
+  ``.waves`` and ``.full_checks``; ``waves_per_launch``, the wave chain
+  a rep runs);
 - in span slices after the window, before any profiler has run:
   ``profile_skip + profile_exchanges`` exchanges timed as the window
   times them, with the recorder on and no profiler, in turn with the
@@ -59,7 +65,9 @@ import time  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 BUILD = {"schedule_s": "schedule.compile", "edges_s": "tables.edges",
-         "round_tables_s": "tables.rounds", "relay_tables_s": "tables.relay"}
+         "round_tables_s": "tables.rounds", "relay_tables_s": "tables.relay",
+         "step_tables_s": "tables.steps"}
+COUNTERS = ("launches", "waves", "full_checks")
 HOPS = 3
 
 
@@ -71,6 +79,15 @@ def _card() -> str | None:
     except (OSError, subprocess.SubprocessError):
         return None
     return r.stdout.strip() or None
+
+
+def _counters() -> dict:
+    """``cuda_dma``'s kernel counters (``dma_steps.<name>``), where the
+    process has loaded it."""
+    mod = sys.modules.get("tpu_aggcomm_torch.backends.cuda_dma")
+    if mod is None:
+        return {}
+    return {f"dma_steps.{k}": getattr(mod.dma_steps, k) for k in COUNTERS}
 
 
 def _slice(profile: dict, n: int) -> dict:
@@ -233,8 +250,14 @@ def main(argv=None) -> int:
     out["build_spans_share"] = (sum(out[k] for k in BUILD)
                                 / out["tables_s"])
 
+    before = _counters()
     record, checks, failed = session.measure(args.seed, args.seconds, False,
                                              release=False)
+    moved = {k: v - before[k] for k, v in _counters().items()}
+    out["window_counters"] = moved
+    if moved.get("dma_steps.launches"):
+        out["waves_per_launch"] = (moved["dma_steps.waves"]
+                                   / moved["dma_steps.launches"])
     tr, ad, sync = session.cell.traffic, session.adapter, session.sync
     skip, n = tr["profile_skip"], tr["profile_exchanges"]
     out["correct"] = harness.passed(checks) and not failed

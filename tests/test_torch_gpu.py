@@ -360,6 +360,34 @@ def test_dma_runs_ten_rank_ctas_per_sm(cuda):
     assert torch.equal(dma_steps(send, tabs), dma_steps_plain(send, tabs))
 
 
+def _theta_cell_dma():
+    """The benchmark cell ``theta_n1280_a2m_c64_dma``'s schedule: 20 whole
+    64-rank nodes of the Theta job, m=1 at ``-c 64``."""
+    return compile_method(1, AggregatorPattern(
+        1280, 20, data_size=2048, comm_size=64, proc_node=64, placement=1))
+
+
+@pytest.mark.parametrize("it", [0, 3])
+def test_dma_bound_rep_at_the_theta_cell_equals_the_checked_launch(cuda, it):
+    """At the cell's shape (1280 rank CTAs, 40 under the H100's cap) the
+    bound rep equals the checked launch and plain byte for byte; the
+    bound launch counts one launch of 2,571 waves and no checked one."""
+    s = _theta_cell_dma()
+    rep = CudaDmaBackend(device="cuda").one_rep(s)
+    tabs = rep.tables
+    assert tabs.n_waves == tabs.n_steps == 2571
+    send = send_arena(s.pattern, it, cuda)
+    before = (dma_steps.launches, dma_steps.waves, dma_steps.full_checks)
+    got = rep(send)
+    check_protocol(tabs)
+    assert (dma_steps.launches - before[0], dma_steps.waves - before[1],
+            dma_steps.full_checks - before[2]) == (1, 2571, 0)
+    checked = dma_steps(send, tabs, out=_poisoned(tabs, send))
+    assert torch.equal(got, checked)
+    del checked
+    assert torch.equal(got, dma_steps_plain(send, tabs))
+
+
 def _readme_dma(cuda, concurrent, d=2048):
     s = compile_method(1, AggregatorPattern(32, 14, data_size=d,
                                             comm_size=3))

@@ -27,10 +27,20 @@ round posted, then drained, ``cuda_dma_conc``). In two halves:
   has moved the wave's cumulative step count past the rank's base word.
   One launch is one rep: the recv rows no real step writes are zeroed
   inside it, and the counters are never reset (each rank's base word
-  advances by NS a launch, on the device). The wrapper :func:`dma_steps`
-  takes the plain version (:func:`dma_steps_plain`, a Python loop of one
-  index copy per step) for a CPU tensor, launches the kernel for a CUDA
-  tensor and counts launches in ``dma_steps.launches``.
+  advances by NS a launch, on the device). The checked wrapper
+  :func:`dma_steps` takes the plain version (:func:`dma_steps_plain`, a
+  Python loop of one index copy per step) for a CPU tensor and launches
+  the kernel for a CUDA tensor after checking every argument and the
+  capacity. :func:`step_rep` binds the launch once for one program's
+  tables (:class:`BoundSteps`): the rep :meth:`CudaDmaBackend.one_rep`
+  returns and :meth:`CudaDmaBackend.run` times. Counters, on the card:
+  ``dma_steps.launches`` (every launch), ``dma_steps.waves`` (the waves
+  those launches issued, so ``waves / launches`` is the chain a rep
+  runs) and ``dma_steps.full_checks`` (launches through the checked
+  entry). Spans, while a trace recorder is on: ``tables.steps`` around
+  :func:`dma_tables`, and around each rep ``rep`` holding ``rep.arena``
+  (the receive arena's allocation) and ``rep.issue`` (the launch; args
+  ``waves`` and ``steps``).
 
 What bounds K3 on an H100 is the dependent wave chain — one cross-SM
 release/acquire signal per wave, NS of them in lockstep — and, second,
@@ -69,7 +79,8 @@ from tpu_aggcomm_torch.device import resolve_device, sync
 from tpu_aggcomm_torch.harness.attribution import attribute_total, weights_for
 from tpu_aggcomm_torch.harness.timer import Timer
 from tpu_aggcomm_torch.harness.verify import recv_slot_counts, verify_recv
-from tpu_aggcomm_torch.native.fuse import zero_runs_of
+from tpu_aggcomm_torch.native.fuse import _dev_index, zero_runs_of
+from tpu_aggcomm_torch.obs import trace
 from tpu_aggcomm_torch.tam.engine import TamMethod
 
 __all__ = ["CudaDmaBackend", "DmaTables", "DmaCapacityError",
@@ -77,7 +88,8 @@ __all__ = ["CudaDmaBackend", "DmaTables", "DmaCapacityError",
            "barrier_shifts", "complete_permutation", "build_steps",
            "wave_profile", "make_tables", "dma_tables", "check_step_tables",
            "capacity", "check_capacity", "check_protocol", "send_arena",
-           "dma_steps", "dma_steps_plain", "TIMEOUT_S"]
+           "dma_steps", "dma_steps_plain", "BoundSteps", "step_rep",
+           "TIMEOUT_S"]
 
 #: how long one wait of a CTA may spin before it gives up and reports the
 #: step it was waiting for (a malformed program must not hang the card);
@@ -406,10 +418,11 @@ def make_tables(tabs, waves, n_send_rows: int, n_recv_rows: int,
 
 def dma_tables(schedule: Schedule, concurrent: bool, device) -> DmaTables:
     """The schedule's step program in one discipline (its waves), checked,
-    on ``device``."""
-    low, tabs, waves, n_recv_slots = build_steps(schedule, concurrent)
-    return make_tables(tabs, waves, low.n_send_slots + 1, n_recv_slots + 1,
-                       device)
+    on ``device``; a ``tables.steps`` span while a trace recorder is on."""
+    with trace.span("tables.steps"):
+        low, tabs, waves, n_recv_slots = build_steps(schedule, concurrent)
+        return make_tables(tabs, waves, low.n_send_slots + 1,
+                           n_recv_slots + 1, device)
 
 
 def send_arena(p, iter_: int, device) -> torch.Tensor:
@@ -421,14 +434,17 @@ def send_arena(p, iter_: int, device) -> torch.Tensor:
                            device=device)
 
 
-def dma_steps_plain(send: torch.Tensor, tabs: DmaTables) -> torch.Tensor:
-    """The plain version: a zeroed recv arena, then per step
-    ``recv[dst[:, st], rslot[:, st]] = send[ranks, sslot[:, st]]``, steps
-    in order. Exact because each step's ``dst`` is a permutation; the
-    same for both disciplines (only the step order differs, and rows
-    written twice are zero dummy rows in the trash row)."""
+def dma_steps_plain(send: torch.Tensor, tabs: DmaTables,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain version: a zeroed recv arena (``out`` zeroed, when
+    given), then per step ``recv[dst[:, st], rslot[:, st]] = send[ranks,
+    sslot[:, st]]``, steps in order. Exact because each step's ``dst`` is
+    a permutation; the same for both disciplines (only the step order
+    differs, and rows written twice are zero dummy rows in the trash
+    row)."""
     n = tabs.nprocs
-    recv = send.new_zeros((n, tabs.n_recv_rows, send.shape[2]))
+    recv = (send.new_zeros((n, tabs.n_recv_rows, send.shape[2]))
+            if out is None else out.zero_())
     ranks = torch.arange(n, device=send.device)
     dst, ss, rs = (t.long() for t in (tabs.dst, tabs.sslot, tabs.rslot))
     for st in range(tabs.n_steps):
@@ -495,22 +511,7 @@ def check_protocol(tabs: DmaTables) -> None:
             f"program did not complete")
 
 
-def dma_steps(send: torch.Tensor, tabs: DmaTables,
-              out: torch.Tensor | None = None, *, check: bool = True,
-              stamps: torch.Tensor | None = None) -> torch.Tensor:
-    """One rep of the step program: recv (n, R+1, d) uint8, trash row
-    last and zero, into ``out`` when given (any contents: every row is
-    overwritten). ``send``'s last row per rank is the dummy row and must
-    be zero, as :func:`send_arena` makes it. CPU tensors take
-    :func:`dma_steps_plain`. On the card: ONE cooperative launch on the
-    current stream, the recv zeroing and the counters' bookkeeping inside
-    it; with ``check`` the wrapper then waits for the device and raises
-    :class:`DmaProtocolError` on a timeout (pass ``check=False`` to keep
-    the call asynchronous, for timing or graph capture, and call
-    :func:`check_protocol` after). ``stamps`` (int64 ``(n_waves + 1,
-    3)``, diagnostic calls only) receives rank 0's %globaltimer stamps:
-    row 0 (start, zeroing done, exit), then per wave (post start, signals
-    issued, wait end)."""
+def _check_args(send: torch.Tensor, tabs: DmaTables, out, stamps) -> None:
     n = tabs.nprocs
     if (send.dim() != 3 or send.dtype != torch.uint8
             or tuple(send.shape[:2]) != (n, tabs.n_send_rows)
@@ -537,14 +538,16 @@ def dma_steps(send: torch.Tensor, tabs: DmaTables,
         raise ValueError(f"dma_steps: stamps must be a contiguous "
                          f"({tabs.n_waves + 1}, 3) int64 tensor on "
                          f"{send.device}")
-    if send.device.type == "cpu":
-        recv = dma_steps_plain(send, tabs)
-        return recv if out is None else out.copy_(recv)
-    dev = send.device.index if send.device.index is not None \
-        else torch.cuda.current_device()
+
+
+def _launch(send: torch.Tensor, tabs: DmaTables, recv: torch.Tensor,
+            stamps) -> None:
+    """One launch of K3 on the current stream through the 23-argument
+    entry, the capacity checked first; counted in ``dma_steps.launches``,
+    ``.waves`` and ``.full_checks``."""
+    dev = _dev_index(send)
+    n = tabs.nprocs
     check_capacity(n, _capacity(dev))
-    recv = torch.empty(shape, dtype=torch.uint8, device=send.device) \
-        if out is None else out
     rc = _c_lib()[1](
         send.data_ptr(), recv.data_ptr(), tabs.dst.data_ptr(),
         tabs.sslot.data_ptr(), tabs.rslot.data_ptr(),
@@ -558,12 +561,134 @@ def dma_steps(send: torch.Tensor, tabs: DmaTables,
     if rc != 0:
         raise RuntimeError(f"dma_steps kernel launch failed: cudaError {rc}")
     dma_steps.launches += 1
+    dma_steps.waves += tabs.n_waves
+    dma_steps.full_checks += 1
+
+
+def dma_steps(send: torch.Tensor, tabs: DmaTables,
+              out: torch.Tensor | None = None, *, check: bool = True,
+              stamps: torch.Tensor | None = None) -> torch.Tensor:
+    """One rep of the step program: recv (n, R+1, d) uint8, trash row
+    last and zero, into ``out`` when given (any contents: every row is
+    overwritten). ``send``'s last row per rank is the dummy row and must
+    be zero, as :func:`send_arena` makes it. CPU tensors take
+    :func:`dma_steps_plain`. On the card: ONE cooperative launch on the
+    current stream, the recv zeroing and the counters' bookkeeping inside
+    it, after every argument and the capacity are checked (counted in
+    ``dma_steps.full_checks``); with ``check`` the wrapper then waits for
+    the device and raises :class:`DmaProtocolError` on a timeout (pass
+    ``check=False`` to keep the call asynchronous, for timing or graph
+    capture, and call :func:`check_protocol` after). ``stamps`` (int64
+    ``(n_waves + 1, 3)``, diagnostic calls only) receives rank 0's
+    %globaltimer stamps: row 0 (start, zeroing done, exit), then per wave
+    (post start, signals issued, wait end)."""
+    _check_args(send, tabs, out, stamps)
+    if send.device.type == "cpu":
+        return dma_steps_plain(send, tabs, out)
+    recv = torch.empty((tabs.nprocs, tabs.n_recv_rows, send.shape[2]),
+                       dtype=torch.uint8, device=send.device) \
+        if out is None else out
+    _launch(send, tabs, recv, stamps)
     if check:
         check_protocol(tabs)
     return recv
 
 
 dma_steps.launches = 0
+dma_steps.waves = 0
+dma_steps.full_checks = 0
+
+
+@dataclass(frozen=True)
+class BoundSteps:
+    """K3's launch bound to one step program's tables on their card, for
+    sends of :attr:`send_shape` uint8, contiguous and on that card: the
+    capacity checked once, and every argument of the C entry but the two
+    arenas and the stream packed once (:attr:`args`, the tables'
+    pointers, the geometry, the timeout and no stamps)."""
+
+    send_shape: torch.Size
+    device_index: int
+    n_waves: int
+    args: tuple
+    launch: object                 # the C entry aggcomm_dma_steps
+    stream: object                 # device index -> the current raw stream
+
+    def takes(self, send: torch.Tensor) -> bool:
+        """Whether ``send`` is what the tables were bound for."""
+        return (send.shape == self.send_shape and send.dtype is torch.uint8
+                and send.get_device() == self.device_index
+                and send.is_contiguous())
+
+    def issue(self, send: torch.Tensor, out: torch.Tensor) -> None:
+        """One launch of K3 from ``send`` into ``out`` on PyTorch's
+        current stream; counted in ``dma_steps.launches`` and
+        ``.waves``."""
+        rc = self.launch(send.data_ptr(), out.data_ptr(), *self.args,
+                         self.stream(self.device_index), self.device_index)
+        if rc != 0:
+            raise RuntimeError(
+                f"dma_steps kernel launch failed: cudaError {rc}")
+        dma_steps.launches += 1
+        dma_steps.waves += self.n_waves
+
+
+def _bind(tabs: DmaTables, data_size: int) -> BoundSteps:
+    """K3's launch for CUDA ``tabs`` and rows of ``data_size`` bytes,
+    bound once; raises :class:`DmaCapacityError` for more ranks than the
+    card holds co-resident."""
+    index = _dev_index(tabs.dst)
+    check_capacity(tabs.nprocs, _capacity(index))
+    fn = _c_lib()[1]
+    values = (tabs.dst.data_ptr(), tabs.sslot.data_ptr(),
+              tabs.rslot.data_ptr(), tabs.wave_end.data_ptr(),
+              tabs.zero_start.data_ptr(), tabs.zero_ptr.data_ptr(),
+              len(tabs.zero_runs), tabs.zero_rows, tabs.nprocs,
+              tabs.n_waves, tabs.n_steps, tabs.n_send_rows,
+              tabs.n_recv_rows, data_size, tabs.arrival.data_ptr(),
+              tabs.base.data_ptr(), tabs.error.data_ptr(),
+              int(TIMEOUT_S * 1e9), None)
+    # what the entry takes between the two arenas and the stream
+    args = tuple(t(v) for t, v in zip(fn.argtypes[2:21], values))
+    return BoundSteps(
+        send_shape=torch.Size((tabs.nprocs, tabs.n_send_rows, data_size)),
+        device_index=index, n_waves=tabs.n_waves, args=args, launch=fn,
+        stream=torch._C._cuda_getCurrentRawStream)
+
+
+def step_rep(tabs: DmaTables, data_size: int):
+    """``rep(send (n, S+1, d) uint8) -> recv (n, R+1, d) uint8``: one rep
+    of the step program in ``tabs``, into a fresh ``torch.empty`` arena.
+    On the card the launch is bound once (:class:`BoundSteps`): a send it
+    was bound for is a key compare, an allocation and one ctypes call,
+    asynchronous (:func:`check_protocol` after the device has run it);
+    any other send takes :func:`dma_steps`' argument check and launch.
+    On the CPU it runs :func:`dma_steps_plain`. A ``rep`` span holding
+    ``rep.arena`` and ``rep.issue`` (args ``waves``, ``steps``) while a
+    trace recorder is on. The tables are ``rep.tables``."""
+    bound = _bind(tabs, data_size) if tabs.device.type == "cuda" else None
+    dev, issue = tabs.device, {"waves": tabs.n_waves, "steps": tabs.n_steps}
+
+    def rep(send):
+        with trace.span("rep"):
+            hit = bound is not None and bound.takes(send)
+            if not hit:
+                _check_args(send, tabs, None, None)
+            with trace.span("rep.arena"):
+                recv = torch.empty((tabs.nprocs, tabs.n_recv_rows,
+                                    send.shape[2]), dtype=torch.uint8,
+                                   device=dev)
+            with trace.span("rep.issue", **issue):
+                if hit:
+                    bound.issue(send, recv)
+                elif dev.type == "cpu":
+                    dma_steps_plain(send, tabs, recv)
+                else:
+                    _launch(send, tabs, recv, None)
+        return recv
+
+    rep.tables = tabs
+    return rep
 
 
 # ---------------------------------------------------------------------------
@@ -582,7 +707,8 @@ class CudaDmaBackend:
     Timing follows the reference: one untimed warm-up launch, then each
     rep is the host clock around the one launch (recv zeroing inside it)
     and the synchronize, spread onto the timer buckets by
-    ``attribute_total`` (provenance ``(name, "attributed")``). Without a
+    ``attribute_total`` (provenance ``(name, "attributed")``); the rep
+    timed is :meth:`one_rep`'s, the one the benchmark drives. Without a
     card and unless ``device="cpu"`` is asked for, construction raises
     ``NoCudaDeviceError``; on the CPU the plain version runs. Under a
     process group construction raises ``NotPortedError`` naming ROADMAP
@@ -604,6 +730,7 @@ class CudaDmaBackend:
         self.concurrent = concurrent
         self.name = "cuda_dma_conc" if concurrent else "cuda_dma"
         self._cache: dict = {}
+        self._reps: dict = {}
         self._sim_delegate: TorchSimBackend | None = None
 
     def tables(self, schedule: Schedule) -> DmaTables:
@@ -617,6 +744,34 @@ class CudaDmaBackend:
 
     def wave_profile(self, schedule: Schedule) -> dict:
         return wave_profile(schedule, self.concurrent)
+
+    def one_rep(self, schedule):
+        """``rep(send (n, S+1, d) uint8) -> recv (n, R+1, d) uint8``: one
+        rep of the schedule's step program (:func:`step_rep`), built once
+        per schedule shape: the tables on the device, on the card the
+        capacity checked and the launch bound once. The rep is
+        asynchronous on the card: call :func:`check_protocol` on
+        ``rep.tables`` after the device has run it. TAM and the dense
+        m=5/8, which :meth:`run` routes to ``torch_sim``, have no step
+        program (``ValueError``); a fault-injected schedule raises
+        :class:`DmaFaultError`."""
+        if isinstance(schedule, TamMethod) or schedule.collective:
+            raise ValueError(
+                f"{self.name}: schedule {schedule.name!r} has no "
+                f"permutation steps (TAM and the dense m=5/8); run() routes "
+                f"it to torch_sim on the same device")
+        if (getattr(schedule, "fault", None)
+                or getattr(schedule, "n_staging", 0)):
+            raise DmaFaultError(
+                f"{self.name}: schedule {schedule.name!r} is fault-injected "
+                f"(fault={schedule.fault!r}); the remote-DMA step program "
+                f"has no faulted lowering (the reference's drops the fault "
+                f"silently); run it on torch_sim")
+        key = schedule_shape_key(schedule)
+        if key not in self._reps:
+            self._reps[key] = step_rep(self.tables(schedule),
+                                       schedule.pattern.data_size)
+        return self._reps[key]
 
     def run(self, schedule, *, ntimes: int = 1, iter_: int = 0,
             verify: bool = False, chained: bool = False):
@@ -640,18 +795,12 @@ class CudaDmaBackend:
             self.last_rep_timers = sb.last_rep_timers
             self.last_provenance = sb.last_provenance
             return out
-        if (getattr(schedule, "fault", None)
-                or getattr(schedule, "n_staging", 0)):
-            raise DmaFaultError(
-                f"{self.name}: schedule {schedule.name!r} is fault-injected "
-                f"(fault={schedule.fault!r}); the remote-DMA step program "
-                f"has no faulted lowering (the reference's drops the fault "
-                f"silently); run it on torch_sim")
-
         p = schedule.pattern
-        tabs = self.tables(schedule)
+        rep = self.one_rep(schedule)            # refuses a faulted schedule
+        tabs = rep.tables
         send = send_arena(p, iter_, self.device)
-        out = dma_steps(send, tabs)               # warm-up, checked
+        out = rep(send)                           # warm-up, checked
+        check_protocol(tabs)
 
         self.last_provenance = (self.name, "attributed")
         timers = [Timer() for _ in range(p.nprocs)]
@@ -659,7 +808,7 @@ class CudaDmaBackend:
         attr_w = weights_for(schedule)
         for _rep in range(ntimes):
             t0 = time.perf_counter()
-            out = dma_steps(send, tabs, check=False)
+            out = rep(send)
             sync(self.device)
             dt = time.perf_counter() - t0
             rep_attr = attribute_total(schedule, dt, weights=attr_w)
